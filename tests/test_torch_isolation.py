@@ -1,0 +1,99 @@
+"""The PyTorch port stands alone: no JAX, no JAX package, no networkx/pandas.
+
+The card's machine has PyTorch but no JAX, networkx or pandas, so neither
+graphem_rapids_torch nor chip_smoke.py may import them, directly or through
+the JAX package.
+"""
+
+import ast
+import importlib.util
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import scipy.sparse as sp
+import torch
+
+from graphem_rapids_torch import GraphEmbedderTorch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "graphem_rapids_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"
+]
+FORBIDDEN = ("jax", "jaxlib", "graphem_rapids_tpu", "networkx", "pandas")
+
+_spec = importlib.util.spec_from_file_location(
+    "lintmod", REPO / "scripts" / "lint.py"
+)
+lintmod = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(lintmod)
+
+
+def _imported_modules(path):
+    """Every module a file imports, including import_module("...") calls."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")):
+            names.append(node.args[0].value)
+    return names
+
+
+@pytest.mark.fast
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys, graphem_rapids_torch, graphem_rapids_torch.ops.knn, "
+        "graphem_rapids_torch.ops.laplacian, graphem_rapids_torch.convert\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_forbidden_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+@pytest.mark.fast
+def test_port_is_lint_clean(monkeypatch):
+    monkeypatch.chdir(REPO)
+    assert lintmod.main(["graphem_rapids_torch", "chip_smoke.py"]) == 0
+
+
+@pytest.mark.fast
+def test_default_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    adj = sp.csr_matrix(([1, 1], ([0, 1], [1, 0])), shape=(3, 3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GraphEmbedderTorch(adj, verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GraphEmbedderTorch(adj, device="cuda", verbose=False)
+
+
+@pytest.mark.fast
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """No card: chip_smoke.py exits nonzero and prints no result line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
