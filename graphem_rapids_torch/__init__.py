@@ -5,16 +5,129 @@ NVIDIA H100. The JAX package is the reference this package is held
 against; this package never imports it, nor JAX.
 
     import graphem_rapids_torch as grt
-    emb = grt.GraphEmbedderTorch(adj, n_components=3)   # CUDA by default
-    pos = emb.run_layout(50)
+    emb = grt.create_graphem(adj, n_components=3, backend="cuvs")  # CUDA
+    emb.run_layout(50)
+    seeds = grt.graphem_seed_selection(emb, k=10)
+    spread = grt.estimated_influence(adj, seeds, p=0.1)
 
-Pass ``device='cpu'`` to run on the CPU (the kNN kernel then runs its plain
-PyTorch version).
+Pass ``device='cpu'`` to run on the CPU (the kNN kernels then run their
+plain PyTorch versions); without it every entry point needs a CUDA card.
 """
 
+import logging
+
+import numpy as np
+import torch
+
 from .convert import state_from_jax
+from .influence import (
+    estimated_influence,
+    graphem_seed_selection,
+    greedy_seed_selection,
+    ndlib_estimated_influence,
+)
 from .models.embedder import GraphEmbedderTorch
+from .utils.backend_selection import (
+    BackendConfig,
+    check_cuda_availability,
+    get_default_config,
+    get_optimal_backend,
+)
 
 __version__ = "0.1.0"
 
-__all__ = ["GraphEmbedderTorch", "state_from_jax"]
+# Migration aliases: graphem-rapids exports its engine as
+# GraphEmbedderPyTorch and its large-scale tier as GraphEmbedderCuVS; here
+# one engine covers both through its kNN strategies.
+GraphEmbedderPyTorch = GraphEmbedderTorch
+GraphEmbedderCuVS = GraphEmbedderTorch
+
+
+def create_graphem(adjacency, n_components=2, backend=None, mesh=None,
+                   **kwargs):
+    """Create a graph embedder with automatic strategy selection.
+
+    Parameters
+    ----------
+    adjacency : array-like or scipy.sparse matrix, square.
+    n_components : int, default=2 — embedding dimensionality.
+    backend : str, optional — force a strategy: 'auto' | 'exact' |
+        'chunked' | 'binfold' | 'pallas' (legacy aliases 'pytorch',
+        'cuda', 'gpu', 'tpu', 'cpu', and 'cuvs'/'rapids', which select
+        'pallas'). GRAPHEM_BACKEND, GRAPHEM_PREFER_GPU (or
+        GRAPHEM_PREFER_TPU), GRAPHEM_MEMORY_LIMIT and GRAPHEM_VERBOSE are
+        honored.
+    mesh : must be None: the sharded multi-device tier is not ported yet.
+    **kwargs : forwarded to GraphEmbedderTorch (``device``, ``seed``, ...).
+
+    Two differences from the JAX factory, both deliberate: 'chunked' is not
+    moved to the CPU when no accelerator is found (without a card, and
+    without ``device='cpu'``, the engine raises), and 'sharded' raises
+    NotImplementedError.
+    """
+    if "index_type" in kwargs:
+        # graphem-rapids' cuVS index knob: there is no ANN index to build
+        # here, so it is accepted and dropped
+        idx = kwargs.pop("index_type")
+        logging.getLogger(__name__).info(
+            "index_type=%r ignored: the engine has no ANN index", idx
+        )
+    if mesh is not None:
+        raise NotImplementedError(
+            "the sharded multi-device tier is not ported yet (ROADMAP "
+            "Queue 1, item 12)"
+        )
+    n_vertices = adjacency.shape[0]
+    # undirected i<j edges ~ nnz / 2 on a symmetric matrix
+    try:
+        nnz = adjacency.nnz
+    except AttributeError:
+        nnz = int(np.count_nonzero(np.asarray(adjacency)))
+    config = get_default_config(
+        n_vertices, n_components, n_edges=max(nnz // 2, 1)
+    )
+    if backend is not None:
+        config.force_backend = backend
+        config.__post_init__()
+
+    strategy = get_optimal_backend(config)
+    if strategy == "sharded":
+        raise NotImplementedError(
+            "the 'sharded' strategy (the multi-device tier) is not ported "
+            "yet (ROADMAP Queue 1, item 12)"
+        )
+    return GraphEmbedderTorch(
+        adjacency, n_components=n_components, knn_strategy=strategy, **kwargs
+    )
+
+
+def get_backend_info():
+    """Hardware and strategy availability: torch and CUDA versions, the
+    CUDA device count and name, and the recommended strategy."""
+    cuda = check_cuda_availability()
+    return {
+        "torch_version": torch.__version__,
+        "cuda_version": torch.version.cuda,
+        "cuda_available": cuda,
+        "cuda_device_count": torch.cuda.device_count() if cuda else 0,
+        "cuda_device_name": torch.cuda.get_device_name(0) if cuda else None,
+        # the engine resolves the kernel itself on the card
+        "recommended_backend": "auto" if cuda else "chunked",
+    }
+
+
+__all__ = [
+    "create_graphem",
+    "get_backend_info",
+    "GraphEmbedderTorch",
+    "GraphEmbedderPyTorch",
+    "GraphEmbedderCuVS",
+    "graphem_seed_selection",
+    "ndlib_estimated_influence",
+    "estimated_influence",
+    "greedy_seed_selection",
+    "BackendConfig",
+    "get_optimal_backend",
+    "check_cuda_availability",
+    "state_from_jax",
+]

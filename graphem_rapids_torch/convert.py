@@ -3,6 +3,11 @@
 The layout engine has no weights: its carried state is the positions, the
 iteration count and the graph shape; the neighbor tables are rebuilt from
 the same edges, and both packages' builders derive identical tables.
+
+Nothing else needs converting. The factory (``create_graphem``), the
+strategy selection and the IC simulator hold no learned state; seed lists
+and spreads are plain arrays; and positions cross through the
+``positions`` setter and ``GraphEmbedderTorch.load_checkpoint``.
 """
 
 import numpy as np

@@ -7,7 +7,8 @@ with the same constructor surface. Each iteration (``_raw_step``):
 2. spring forces from the neighbor-table gather, plus hub overflow;
 3. edge-midpoint kNN refs fused from the same gather;
 4. (k+1)-NN of the sampled midpoints against all midpoints, self column
-   dropped; above EXACT_MAX_REFS on CUDA this is the bin-fold kernel;
+   dropped; above EXACT_MAX_REFS on CUDA this is the bin-fold kernel,
+   and knn_strategy='pallas' takes the exact tiled kernel;
 5. intersection repulsion;
 6. add the forces, center, divide by the ddof=1 std.
 
@@ -35,9 +36,11 @@ from ..ops.forces import (
     spring_forces_binned,
     spring_forces_from_gathered,
 )
-from ..ops.knn import DEFAULT_CHUNK, EXACT_MAX_REFS, knn
+from ..ops.knn import EXACT_MAX_REFS, knn
+from ..ops.knn_pallas import MAX_K as PALLAS_MAX_K
 from ..ops.laplacian import spectral_init
 from ..ops.sampling import sample_indices
+from ..utils.memory_management import get_optimal_chunk_size
 
 logger = logging.getLogger(__name__)
 
@@ -69,12 +72,14 @@ class GraphEmbedderTorch:
     n_neighbors : int, default=10 — neighbors per sampled midpoint.
     sample_size : int, default=256 — midpoints sampled per iteration.
     batch_size : int, optional — ref tile of the 'chunked' kNN strategy;
-        None takes DEFAULT_CHUNK.
-    knn_strategy : 'auto' | 'exact' | 'chunked' | 'binfold'. 'auto' is
-        exact up to EXACT_MAX_REFS edges; beyond, CUDA takes the bin-fold
-        kernel while its gates hold (dim <= 8, k+1 <= 48, edges below
-        MAX_REFS_SEGMENTED) and 'chunked' otherwise, the CPU 'chunked'.
-        'approx' and 'pallas' are not ported yet.
+        None derives it from the device budget with get_optimal_chunk_size,
+        as GraphEmbedderTPU does.
+    knn_strategy : 'auto' | 'exact' | 'chunked' | 'binfold' | 'pallas'.
+        'auto' is exact up to EXACT_MAX_REFS edges; beyond, CUDA takes the
+        bin-fold kernel while its gates hold (dim <= 8, k+1 <= 48, edges
+        below MAX_REFS_SEGMENTED) and 'chunked' otherwise, the CPU
+        'chunked'. 'pallas' is the exact tiled kernel (k+1 <= 128); 'auto'
+        never selects it. 'approx' is not ported yet.
     knn_compute_dtype : accepted for API compatibility; it applies to the
         'approx' strategy only, which is not ported yet.
     knn_recall_target : float, default=0.95 — sizes the bin-fold bins.
@@ -172,8 +177,20 @@ class GraphEmbedderTorch:
         self.n_edges = len(edges_np)
         self.sample_size = int(min(sample_size, max(self.n_edges, 1)))
         self._edges_np = edges_np
-        self.batch_size = DEFAULT_CHUNK if batch_size is None else int(batch_size)
         self._strategy = self._resolved_strategy()
+        if (self._strategy == "pallas"
+                and min(self.n_neighbors + 1, self.n_edges) > PALLAS_MAX_K):
+            raise ValueError(
+                f"knn_strategy='pallas' supports k <= {PALLAS_MAX_K}, got "
+                f"n_neighbors + 1 = {self.n_neighbors + 1}"
+            )
+        if batch_size is None:
+            self.batch_size = get_optimal_chunk_size(
+                self.n, self.n_components, strategy=self._strategy,
+                device=self.device,
+            )
+        else:
+            self.batch_size = int(batch_size)
 
         # Keep the ref space inside the bin-fold kernel's segmented index
         # bound on the card (binds only at ~100M-edge scale).
@@ -215,6 +232,7 @@ class GraphEmbedderTorch:
                              self.n, self.n_edges, self.n_components)
             self.logger.info("Neighbor table: %s", self.table_kind)
             self.logger.info("kNN strategy: %s", self._strategy)
+            self.logger.info("kNN batch size: %d", self.batch_size)
 
         init_np = spectral_init(adjacency, self.n_components, method=init,
                                 seed=seed)

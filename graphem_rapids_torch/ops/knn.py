@@ -6,6 +6,7 @@ Counterpart of ``graphem_rapids_tpu/ops/knn.py``. Strategies:
 - ``knn_chunked`` : a loop over ref tiles with a running top-k merge, so
                     the (S, E) matrix is never materialized.
 - ``binfold``     : the fused bin-fold kernel (ops/knn_binfold.py).
+- ``pallas``      : the exact tiled kNN kernel (ops/knn_pallas.py).
 
 Distances are squared Euclidean, always in the difference form
 (q - r)^2 summed over coordinates: the expanded |q|^2 - 2 q.r + |r|^2 form
@@ -15,6 +16,7 @@ loses close distances to fp32 cancellation (62% recall measured).
 import torch
 
 from .knn_binfold import knn_binfold
+from .knn_pallas import knn_pallas
 
 # Below this many refs a single (S, E) distance matrix is cheap.
 EXACT_MAX_REFS = 32768
@@ -61,9 +63,9 @@ def knn(queries, refs, k, strategy="auto", chunk_size=DEFAULT_CHUNK,
         recall_target=0.95):
     """Strategy-dispatched kNN.
 
-    strategy in {'auto', 'exact', 'chunked', 'binfold'}; 'auto' takes
-    'exact' up to EXACT_MAX_REFS refs and 'chunked' beyond. 'approx' and
-    'pallas' are not ported yet and raise NotImplementedError.
+    strategy in {'auto', 'exact', 'chunked', 'binfold', 'pallas'}; 'auto'
+    takes 'exact' up to EXACT_MAX_REFS refs and 'chunked' beyond. 'approx'
+    is not ported yet and raises NotImplementedError.
     """
     if strategy == "auto":
         strategy = "exact" if refs.shape[0] <= EXACT_MAX_REFS else "chunked"
@@ -79,8 +81,5 @@ def knn(queries, refs, k, strategy="auto", chunk_size=DEFAULT_CHUNK,
             "'the approx strategy'); use 'binfold' or 'chunked'"
         )
     if strategy == "pallas":
-        raise NotImplementedError(
-            "the 'pallas' exact kNN kernel (K2) is not ported yet (ROADMAP "
-            "Queue 2, K2); use 'exact' or 'chunked'"
-        )
+        return knn_pallas(queries, refs, k)
     raise ValueError(f"Unknown kNN strategy: {strategy!r}")

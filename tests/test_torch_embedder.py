@@ -50,6 +50,13 @@ CONFIGS = {
     "binned_fused_binfold": (_skewed_adj,
                              dict(knn_strategy="binfold", binned_table=True),
                              "binned+overflow plan", "binfold", True),
+    "pallas": (lambda: gr.generate_random_regular(n=300, d=6, seed=2),
+               dict(knn_strategy="pallas"), "flat", "pallas", False),
+    # fused refs: the table's 1e30 pad slots reach the exact kernel
+    "fused_pallas": (_skewed_adj,
+                     dict(knn_strategy="pallas", fused_midpoints=True,
+                          binned_table=True),
+                     "binned+overflow plan", "pallas", True),
 }
 
 

@@ -1,0 +1,220 @@
+"""Influence maximization and the IC simulator of the PyTorch port against
+the JAX package.
+
+The two simulators draw their coins from different generators, so spreads
+agree in distribution, not run by run. The gates are therefore:
+- exact counts where the cascade is not random: p=0 leaves exactly the
+  seeds active, p=1 activates exactly the seeds' connected components;
+- at p=0.1, mean spreads of 512 runs a side within 4 standard errors of
+  the difference (a false alarm about once in 16,000 runs);
+- greedy seeds on a hub graph whose best seeds are far apart in gain
+  (margins of several standard errors at 32 runs per estimate), held
+  against the JAX full sweep ``_greedy_scatter`` and the JAX greedy.
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+from scipy.sparse.csgraph import connected_components
+
+import graphem_rapids_torch as grt
+from graphem_rapids_torch import influence as tinf
+from graphem_rapids_torch.ops import ic_sim as tic
+
+
+def _adj(edges, n):
+    e = np.asarray(edges, np.int64)
+    a = sp.coo_matrix((np.ones(len(e)), (e[:, 0], e[:, 1])),
+                      shape=(n, n)).tocsr()
+    a = a + a.T
+    a.data[:] = 1
+    return a
+
+
+def _lt_edges(adj):
+    rows, cols = adj.nonzero()
+    mask = rows < cols
+    return np.column_stack([rows[mask], cols[mask]]).astype(np.int64)
+
+
+def _disconnected(seed=0):
+    """A hub (vertex 0, 120 leaves, above any table cap) with a ring through
+    its leaves, a separate ring 150..249, and isolated vertices 250..299."""
+    rng = np.random.default_rng(seed)
+    e = [(0, j) for j in range(1, 121)]
+    e += [(j, j + 1) for j in range(1, 120)]
+    e += [(150 + j, 150 + (j + 1) % 100) for j in range(100)]
+    e += [tuple(sorted(p)) for p in rng.integers(150, 250, (30, 2))
+          if p[0] != p[1]]
+    return _adj(sorted(set(e)), 300)
+
+
+def _sparse_random(n=400, m=900, seed=1):
+    rng = np.random.default_rng(seed)
+    e = rng.integers(0, n, (m, 2))
+    e = e[e[:, 0] != e[:, 1]]
+    return _adj(np.sort(e, axis=1), n)
+
+
+def _hub_graph(seed=3):
+    """Four stars of 80, 50, 30 and 15 leaves, disjoint, plus 30 random
+    leaf-leaf edges: at p=0.2 the hubs' gains are far apart."""
+    rng = np.random.default_rng(seed)
+    e, nxt = [], 4
+    for hub, leaves in enumerate((80, 50, 30, 15)):
+        e += [(hub, nxt + j) for j in range(leaves)]
+        nxt += leaves
+    e += [tuple(sorted(p)) for p in rng.integers(4, nxt, (30, 2))
+          if p[0] != p[1]]
+    return _adj(sorted(set(e)), nxt)
+
+
+def _component_size(adj, seeds):
+    _, labels = connected_components(adj, directed=False)
+    hit = np.isin(labels, labels[np.asarray(seeds)])
+    return int(hit.sum())
+
+
+@pytest.fixture(params=["table", "scatter"])
+def path(request, monkeypatch):
+    if request.param == "scatter":
+        monkeypatch.setattr(tic, "TABLE_BUDGET_SLOTS", 0)
+    return request.param
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("seeds", [[5], [5, 200], [260], [0, 160, 299]])
+def test_p0_and_p1_are_exact(path, seeds):
+    adj = _disconnected()
+    edges, n = _lt_edges(adj), adj.shape[0]
+    plan = tic.build_cascade_plan(edges, n, "cpu")
+    if path == "table":
+        assert plan is not None and plan["ov_dst"].numel() > 0  # hub overflow
+    else:
+        assert plan is None
+    c0, iters = tic.independent_cascade(edges, n, seeds, p=0.0, num_sims=16,
+                                        device="cpu")
+    assert iters == 200 and c0.shape == (16,)
+    assert (c0 == len(seeds)).all()
+    c1, _ = tic.independent_cascade(edges, n, seeds, p=1.0, num_sims=16,
+                                    device="cpu")
+    assert (c1 == _component_size(adj, seeds)).all()
+    assert tinf.estimated_influence(adj, seeds, p=1.0, num_sims=4,
+                                    device="cpu") == _component_size(adj, seeds)
+
+
+@pytest.mark.fast
+def test_all_seeds_and_depth_cap(path):
+    adj = _disconnected()
+    edges, n = _lt_edges(adj), adj.shape[0]
+    counts, _ = tic.independent_cascade(edges, n, range(n), p=0.5,
+                                        num_sims=8, device="cpu")
+    assert (counts == n).all()
+    # a ring walked at p=1 from one vertex gains two vertices per step
+    ring = _adj([(j, (j + 1) % 60) for j in range(60)], 60)
+    capped, _ = tic.independent_cascade(_lt_edges(ring), 60, [0], p=1.0,
+                                        num_sims=2, max_iters=3,
+                                        device="cpu")
+    assert (capped == 7).all()
+
+
+@pytest.mark.fast
+def test_mean_spread_matches_jax(path):
+    jic = pytest.importorskip("graphem_rapids_tpu.ops.ic_sim")
+    jax = pytest.importorskip("jax")
+    adj = _sparse_random()
+    edges, n = _lt_edges(adj), adj.shape[0]
+    seeds = [3, 77, 150, 301, 388]
+    jc, _ = jic.independent_cascade(edges, n, seeds, p=0.1, num_sims=512,
+                                    key=jax.random.PRNGKey(11))
+    tc, _ = tic.independent_cascade(edges, n, seeds, p=0.1, num_sims=512,
+                                    key=11, device="cpu")
+    jc, tc = np.asarray(jc, float), np.asarray(tc, float)
+    se = np.sqrt(jc.var(ddof=1) / len(jc) + tc.var(ddof=1) / len(tc))
+    assert abs(jc.mean() - tc.mean()) < 4 * se, (jc.mean(), tc.mean(), se)
+    assert tc.min() >= len(seeds)
+
+
+@pytest.mark.fast
+def test_keys_reproduce():
+    adj = _sparse_random(seed=4)
+    edges, n = _lt_edges(adj), adj.shape[0]
+    a, _ = tic.independent_cascade(edges, n, [1, 2], num_sims=32, key=5,
+                                   device="cpu")
+    b, _ = tic.independent_cascade(edges, n, [1, 2], num_sims=32,
+                                   key=torch.Generator().manual_seed(5),
+                                   device="cpu")
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.fast
+def test_graphem_seed_selection_matches_jax():
+    gr = pytest.importorskip("graphem_rapids_tpu")
+    adj = _sparse_random(n=300, m=800, seed=6)
+    kw = dict(n_components=3, seed=0, verbose=False, init="random")
+    ref = gr.GraphEmbedderTPU(adj, **kw)
+    port = grt.GraphEmbedderTorch(adj, device="cpu", **kw)
+    start = np.random.default_rng(2).standard_normal((300, 3)).astype(
+        np.float32)
+    ref.positions = start
+    port.positions = start
+    want = gr.graphem_seed_selection(ref, k=12, num_iterations=0)
+    got = grt.graphem_seed_selection(port, k=12, num_iterations=0)
+    assert got == want and len(got) == 12
+
+
+@pytest.mark.fast
+def test_greedy_matches_jax_full_sweep():
+    jax = pytest.importorskip("jax")
+    jinf = pytest.importorskip("graphem_rapids_tpu.influence")
+    adj = _hub_graph()
+    edges, n = _lt_edges(adj), adj.shape[0]
+    kw = dict(p=0.2, iterations_count=50, num_sims=32)
+    want, _ = jinf._greedy_scatter(edges.astype(np.int32), n, 3, kw["p"],
+                                   kw["iterations_count"], kw["num_sims"],
+                                   jax.random.PRNGKey(0))
+    assert want == [0, 1, 2]
+    j_celf, _ = jinf.greedy_seed_selection((edges, n), 3, seed=0, **kw)
+    assert j_celf == want
+    got, evals = grt.greedy_seed_selection(adj, 3, seed=0, device="cpu", **kw)
+    assert got == want and evals >= n * kw["num_sims"]
+
+
+@pytest.mark.fast
+def test_greedy_scatter_path_matches(monkeypatch):
+    monkeypatch.setattr(tic, "TABLE_BUDGET_SLOTS", 0)
+    adj = _hub_graph()
+    got, evals = grt.greedy_seed_selection(adj, 3, p=0.2, iterations_count=50,
+                                           num_sims=32, seed=1, device="cpu")
+    assert got == [0, 1, 2]
+    n = adj.shape[0]
+    assert evals == (n + (n - 1) + (n - 2)) * 32  # a full sweep per round
+
+
+@pytest.mark.fast
+def test_ndlib_fallback_and_graph_inputs():
+    nx = pytest.importorskip("networkx")
+    jinf = pytest.importorskip("graphem_rapids_tpu.influence")
+    adj = _disconnected()
+    count, iters = grt.ndlib_estimated_influence(adj, [5], p=1.0,
+                                                 iterations_count=150,
+                                                 device="cpu")
+    assert isinstance(count, int) and iters == 150
+    assert count == _component_size(adj, [5])
+    G = nx.from_scipy_sparse_array(adj)
+    for g in (G, adj, (_lt_edges(adj), 300)):
+        e_t, n_t = tinf._as_edges_and_n(g)
+        e_j, n_j = jinf._as_edges_and_n(g)
+        assert n_t == n_j == 300
+        np.testing.assert_array_equal(np.asarray(e_t), np.asarray(e_j))
+
+
+@pytest.mark.fast
+def test_default_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    adj = _disconnected()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        grt.estimated_influence(adj, [1], p=0.1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        grt.greedy_seed_selection(adj, 2)

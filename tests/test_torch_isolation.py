@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: no JAX, no JAX package, no networkx/pandas.
 
-The card's machine has PyTorch but no JAX, networkx or pandas, so neither
-graphem_rapids_torch nor chip_smoke.py may import them, directly or through
-the JAX package.
+The card's machine has PyTorch but no JAX, networkx, pandas or ndlib, so
+neither graphem_rapids_torch nor chip_smoke.py may import them, directly or
+through the JAX package. ndlib (with networkx) is imported only inside
+``ndlib_estimated_influence``, when it is called, so the import-time check
+forbids it and the source scan allows it only there.
 """
 
 import ast
@@ -22,7 +24,8 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "graphem_rapids_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"
 ]
-FORBIDDEN = ("jax", "jaxlib", "graphem_rapids_tpu", "networkx", "pandas")
+FORBIDDEN = ("jax", "jaxlib", "graphem_rapids_tpu", "networkx", "pandas",
+             "ndlib")
 
 _spec = importlib.util.spec_from_file_location(
     "lintmod", REPO / "scripts" / "lint.py"
@@ -31,11 +34,33 @@ lintmod = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(lintmod)
 
 
+# the one function allowed to import optional packages, and which
+LAZY_IMPORTS = {"ndlib_estimated_influence": ("ndlib", "networkx")}
+
+
+def _lazy_import_nodes(tree):
+    """The import statements inside LAZY_IMPORTS functions that import only
+    the packages those functions are allowed."""
+    nodes = set()
+    for fn in ast.walk(tree):
+        if isinstance(fn, ast.FunctionDef) and fn.name in LAZY_IMPORTS:
+            for node in ast.walk(fn):
+                if isinstance(node, ast.Import) and all(
+                        a.name.split(".")[0] in LAZY_IMPORTS[fn.name]
+                        for a in node.names):
+                    nodes.add(id(node))
+    return nodes
+
+
 def _imported_modules(path):
-    """Every module a file imports, including import_module("...") calls."""
+    """Every module a file imports, including import_module("...") calls,
+    except the lazy imports of LAZY_IMPORTS."""
     tree = ast.parse(path.read_text(), filename=str(path))
+    lazy = _lazy_import_nodes(tree)
     names = []
     for node in ast.walk(tree):
+        if id(node) in lazy:
+            continue
         if isinstance(node, ast.Import):
             names.extend(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -53,7 +78,12 @@ def _imported_modules(path):
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, graphem_rapids_torch, graphem_rapids_torch.ops.knn, "
-        "graphem_rapids_torch.ops.laplacian, graphem_rapids_torch.convert\n"
+        "graphem_rapids_torch.ops.laplacian, graphem_rapids_torch.convert, "
+        "graphem_rapids_torch.influence, graphem_rapids_torch.ops.ic_sim, "
+        "graphem_rapids_torch.ops.knn_pallas, graphem_rapids_torch.utils, "
+        "graphem_rapids_torch.utils.backend_selection, "
+        "graphem_rapids_torch.utils.memory_management, "
+        "graphem_rapids_torch.utils.profiling\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -231,8 +231,9 @@ def test_knn_dispatch():
     assert idx.tolist() == [[0, 1, 2]] * 4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tknn.knn(q, r, 3, strategy="approx")
-    with pytest.raises(NotImplementedError, match="K2"):
-        tknn.knn(q, r, 3, strategy="pallas")
+    pidx, pvals = tknn.knn(q, r, 3, strategy="pallas")
+    assert pidx.tolist() == [[0, 1, 2]] * 4
+    np.testing.assert_array_equal(pvals.numpy(), [[1.0, 13.0, 41.0]] * 4)
     with pytest.raises(ValueError, match="Unknown"):
         tknn.knn(q, r, 3, strategy="bogus")
     assert tknn.EXACT_MAX_REFS == jknn.EXACT_MAX_REFS
