@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of graphem_rapids_torch on one CUDA card.
 
-    python3 chip_smoke.py             # the phases below, one JSON line each
-    python3 chip_smoke.py --profile   # also a torch.profiler breakdown of
-                                      # 10 iterations of each main-path and
-                                      # quick-start graph, and of one IC call
+    python3 chip_smoke.py               # the phases below, one JSON line each
+    python3 chip_smoke.py --profile     # also a torch.profiler breakdown of
+                                        # 10 iterations of each main-path,
+                                        # quick-start and sharded graph, and
+                                        # of one IC call, and the sharded
+                                        # diagnostics of phases 11 and 13
+    python3 chip_smoke.py --multi-card  # phases 1, 2 and 13 only (a host
+                                        # with several cards)
 
 Phases:
 1. device: the card's name, and its power limit and clocks from nvidia-smi;
@@ -39,17 +43,54 @@ Phases:
    the card and on the CPU;
 9. card against CPU: a small graph, 5 injected-sample steps with
    knn_strategy='binfold' and 'pallas' on the card and on the CPU,
-   allclose.
+   allclose;
+10. K3 against its plain version: one ring hop (the fold of a rank's ref
+    tile, ids rank * R_pad + p, and the min-merge with the carry) by the
+    kernel and by ring_fold_reference, at hop 0 and at later hops with a
+    carry: one rank at S=512 against the main path's two shapes (the 100K
+    graph's 800,000 fused refs and the 1M graph's 5,699,741, the shape
+    timed below), the 1M graph's refs over 4 virtual ranks at S=512
+    (S_loc=128) and over 8 (S_loc=64), one rank at the full count on 64
+    queries, ragged tiles with 1e30 pads at S=500 (query pad rows) for d=2
+    and d=4, and a tile duplicated on two ranks (every bin ties; the carry
+    must win). The plain version runs on 64 query rows at a time (the fold
+    is row by row). Bins and ids must be bit-equal. The whole virtual ring
+    (ring_binfold_topk_virtual) with the kernel against the same with the
+    plain version: equal distances, identical neighbour sets. Times: the
+    kernel per hop at the one-rank 1M shape (S_loc=512, R_pad=5,701,632),
+    and on 64 queries beside the plain version there, and the bound;
+11. the sharded path: distributed_init starts a one-rank NCCL group (a
+    file:// store in a temporary directory); ShardedGraphEmbedder with
+    knn_comm='ring_pallas' on both graphs, warm-up, then 50 timed
+    iterations: one ring hop (one K3 launch) per iteration and no K1
+    launch; then knn_comm='all_gather' at 1M, whose local top-k is K1;
+    with --profile also 'ring_pallas' at 1M on a one-rank mesh without a
+    process group (no NCCL call), which prices the collectives;
+12. sharded against single-card: 5 injected-sample steps of the one-rank
+    'ring_pallas' step and of GraphEmbedderTorch(knn_strategy='binfold'),
+    both on the card, allclose;
+13. several cards, only where torch.cuda.device_count() >= 2: min(count, 4)
+    NCCL ranks, one process each; the 'ring_pallas' neighbour sets through
+    the sharded step (_debug_knn) equal ring_binfold_topk_virtual's on the
+    same positions and sample, positions are bit-equal on every rank after
+    5 steps, and after 3 run_layout iterations every rank draws the same
+    next sample and each rank's own update stayed within REPLICA_GAP_LIMIT
+    of rank 0's before the broadcast; with --profile each rank then times
+    20 iterations of the 1M graph with 'ring_pallas' and with 'all_gather'.
+    On one card the phase prints {"phase": "multi_card", "skipped":
+    "1 card"} and runs nothing.
 
-Each main-path and quick-start phase zeroes the kernels' launch counts
-just before its timed run and reads them just after. The line before the
-last is the kernel summary {"kernels": [...]}; the last line is
+Each main-path, quick-start and sharded phase zeroes the kernels' launch
+counts just before its timed run and reads them just after. The line
+before the last is the kernel summary {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -448,15 +489,409 @@ def phase_card_vs_cpu(grt, strategy):
         raise AssertionError(f"card and CPU trajectories disagree ({strategy})")
 
 
+def phase_kernel_k3(rb, fp32_instr_per_s):
+    """Phase 10: K3 against its plain version on the card."""
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    k = FORCE_PARAMS["n_neighbors"] + 1
+    refs_1m = 5_699_741  # the 1M graph's fused refs
+
+    def refs_of(E, d):
+        r = torch.randn(E, d, generator=gen)
+        r[torch.randperm(E, generator=gen)[:E // 40]] = 1e30
+        return r.cuda()
+
+    def split(r, ndev):
+        """ndev equal tiles, the last padded with 1e30 rows."""
+        E_loc = -(-r.shape[0] // ndev)
+        pad = torch.full((E_loc * ndev - r.shape[0], r.shape[1]), 1e30,
+                         device=r.device)
+        return list(torch.cat([r, pad]).chunk(ndev))
+
+    worst = 0.0
+
+    def plain(qs, tile, carry, offset, T, G, n_super, rows=64):
+        """ring_fold_reference on ``rows`` queries at a time: the same bins
+        (the fold is row by row) in a fraction of the memory."""
+        parts = [rb.ring_fold_reference(
+            qs[i:i + rows], tile, None if carry is None else
+            (carry[0][i:i + rows], carry[1][i:i + rows]), offset, T, G,
+            n_super) for i in range(0, qs.shape[0], rows)]
+        return (torch.cat([v for v, _ in parts]),
+                torch.cat([ix for _, ix in parts]))
+
+    def hop(name, q, tiles, rank, h):
+        """Rank ``rank``'s hop ``h``; its carry is folded by the plain
+        version over the ranks before it on the same shard."""
+        nonlocal worst
+        ndev = len(tiles)
+        T, G, n_super, R_pad, S_pad, S_loc, _ = rb._geometry(
+            tiles[0].shape[0], q.shape[0], ndev, k, 0.95)
+        s = (rank - h) % ndev
+        qs = rb._padded_queries(q, S_pad)[s * S_loc:(s + 1) * S_loc]
+        carry = None
+        for j in range(h):
+            r = (s + j) % ndev
+            carry = plain(qs, tiles[r], carry, r * R_pad, T, G, n_super)
+        kv, ki = rb.ring_fold_cuda(qs, tiles[rank], carry, rank * R_pad, T,
+                                   G, n_super)
+        torch.cuda.synchronize()
+        pv, pi = plain(qs, tiles[rank], carry, rank * R_pad, T, G, n_super)
+        equal = bool(torch.equal(kv, pv) and torch.equal(ki, pi))
+        err = float((kv - pv).abs().max())
+        worst = max(worst, err)
+        emit("kernel_check", kernel="ring_binfold", case=name, ranks=ndev,
+             rank=rank, hop=h, shard=s, S=q.shape[0], S_loc=S_loc,
+             E_loc=tiles[0].shape[0], d=q.shape[1], T=T, G=G,
+             n_super=n_super, R_pad=R_pad, carry=carry is not None,
+             bit_equal=equal, max_abs_err=err)
+        if not equal:
+            raise AssertionError(f"ring kernel disagrees with plain: {name}")
+        return kv, ki, R_pad
+
+    q512 = torch.randn(512, 3, generator=gen).cuda()
+    hop("100k_1rank_512q", q512, [refs_of(800_000, 3)], 0, 0)
+    r1m = refs_of(refs_1m, 3)
+    hop("1m_1rank_512q", q512, [r1m], 0, 0)  # the shape timed below
+    t4 = split(r1m, 4)
+    hop("1m_4ranks_hop0", q512, t4, 1, 0)
+    hop("1m_4ranks_hop1", q512, t4, 2, 1)
+    hop("1m_4ranks_hop3", q512, t4, 0, 3)
+    t8 = split(r1m, 8)
+    hop("1m_8ranks_hop0", q512, t8, 3, 0)
+    hop("1m_8ranks_hop5", q512, t8, 6, 5)
+    del t8
+    q64 = torch.randn(64, 3, generator=gen).cuda()
+    hop("1m_1rank_64q", q64, [r1m], 0, 0)
+    for d in (2, 4):
+        q500 = torch.randn(500, d, generator=gen).cuda()
+        tr = split(refs_of(4 * 9001 - 5, d), 4)
+        hop(f"ragged_s500_d{d}_hop0", q500, tr, 3, 0)  # shard 3: pad rows
+        hop(f"ragged_s500_d{d}_hop2", q500, tr, 1, 2)
+    a = refs_of(50_000, 3)
+    qd = torch.randn(256, 3, generator=gen).cuda()
+    kv, ki, R_pad = hop("duplicate_tiles_hop1", qd, [a, a.clone()], 1, 1)
+    if bool(((ki >= R_pad) & (kv < 3.0e38)).any()):
+        raise AssertionError("ring kernel: a tie did not keep the carry")
+
+    for name, q, tiles in (("1m_4ranks", q512, t4),
+                           ("s500_8ranks", torch.randn(
+                               500, 3, generator=gen).cuda(),
+                            split(refs_of(400_000, 3), 8))):
+        kv, ki, _ = rb.ring_binfold_topk_virtual(q, tiles, k)
+        torch.cuda.synchronize()
+        pv, pi, _ = rb.ring_binfold_topk_virtual(
+            q, tiles, k, fold=rb.ring_fold_reference)
+        sets = bool(torch.equal(torch.sort(ki, dim=1).values,
+                                torch.sort(pi, dim=1).values))
+        equal = bool(torch.equal(kv, pv)) and sets
+        emit("kernel_check", kernel="ring_binfold", case="virtual_ring_" + name,
+             ranks=len(tiles), S=q.shape[0], k=k, distances_equal=bool(
+                 torch.equal(kv, pv)), sets_equal=sets)
+        if not equal:
+            raise AssertionError(f"virtual ring disagrees with plain: {name}")
+    del t4
+
+    S, d = 512, 3
+    T, G, n_super, R_pad, _, S_loc, _ = rb._geometry(refs_1m, S, 1, k, 0.95)
+    kernel_ms = cuda_ms(lambda: rb.ring_fold_cuda(q512, r1m, None, 0, T, G,
+                                                  n_super))
+    kernel64_ms = cuda_ms(lambda: rb.ring_fold_cuda(q64, r1m, None, 0, T, G,
+                                                    n_super))
+    plain64_ms = cuda_ms(lambda: rb.ring_fold_reference(q64, r1m, None, 0, T,
+                                                        G, n_super),
+                         reps=3, warmup=1)
+    ops = (3 * d + 3) * S_loc * R_pad
+    nbytes = 4 * (S_loc * d + R_pad * d) + 16 * S_loc * G * 128
+    ops_ms = ops / fp32_instr_per_s * 1e3
+    bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    emit("kernel_time", name="ring_binfold", S_loc=S_loc, R_pad=R_pad,
+         E_loc=refs_1m, d=d, G=G, n_super=n_super, kernel_ms=kernel_ms,
+         kernel_ms_64q=kernel64_ms, plain_ms_64q=plain64_ms, ops=ops,
+         bytes=nbytes, ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms)
+    return {
+        "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain64_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+    }
+
+
+def phase_sharded(grt, bf, rb, label, adj, init, warmup, profile,
+                  knn_comm="ring_pallas", mesh=None):
+    """Phase 11: ShardedGraphEmbedder on the one-rank NCCL mesh, or on
+    ``mesh`` (a one-rank mesh without a process group, for comparison)."""
+    import torch.distributed as dist
+
+    nccl = mesh is None
+    if nccl:
+        mesh = grt.default_mesh()
+    t0 = time.perf_counter()
+    emb = grt.ShardedGraphEmbedder(adj, mesh=mesh, knn_comm=knn_comm,
+                                   n_components=3, seed=0, verbose=False,
+                                   init=init, **FORCE_PARAMS)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    refs = int(len(emb._nb["ref_edge"])) if emb._fused_refs_active \
+        else emb.n_edges
+    k = FORCE_PARAMS["n_neighbors"] + 1
+    T, G, n_super, R_pad, _, S_loc, _ = rb._geometry(
+        refs, emb.sample_size, mesh.world_size, k, emb.knn_recall_target)
+    backend = dist.get_backend(mesh.group) if mesh.group is not None \
+        else "none"
+    emit("sharded_setup", graph=label, knn_comm=knn_comm,
+         ranks=mesh.world_size, backend=backend,
+         n=emb.n, E=emb.n_edges, table=emb.table_kind,
+         fused_refs=emb._fused_refs_active, refs=refs, R_pad=R_pad, G=G,
+         n_super=n_super, S_loc=S_loc, init=init, init_s=init_s)
+    if (nccl and backend != "nccl") or emb.device.type != "cuda":
+        raise AssertionError(f"{label}: the sharded path must run on the "
+                             "card's NCCL group")
+    if not emb._fused_refs_active:
+        raise AssertionError(f"{label}: a CUDA mesh fuses the kNN refs")
+    emb.run_layout(warmup, block_size=warmup)
+
+    rb.ring_fold.launches = 0
+    bf.knn_binfold.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pos = emb.run_layout(ITERS, block_size=10)
+    dt = time.perf_counter() - t0
+    ring, k1 = rb.ring_fold.launches, bf.knn_binfold.launches
+    std = pos.std(axis=0, ddof=1)
+    emit("sharded_run", graph=label, knn_comm=knn_comm, backend=backend,
+         iters=ITERS,
+         seconds=dt, ms_per_iter=dt / ITERS * 1e3,
+         edges_per_s=emb.n_edges * ITERS / dt,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+         ring_binfold_launches=ring, binfold_launches=k1,
+         finite=bool(np.isfinite(pos).all()), std=std.tolist())
+    hops = mesh.world_size
+    want = (ITERS * hops, 0) if knn_comm == "ring_pallas" else (0, ITERS)
+    if (ring, k1) != want:
+        raise AssertionError(f"{label} {knn_comm}: {ring} K3 and {k1} K1 "
+                             f"launches in {ITERS} iterations, want {want}")
+    if pos.shape != (emb.n, 3) or not np.isfinite(pos).all():
+        raise AssertionError(f"{label}: positions not finite")
+    if not np.allclose(std, 1.0, atol=1e-3):
+        raise AssertionError(f"{label}: per-axis std {std} is not ~1")
+    if profile:
+        profile_steps(emb, f"{label}_sharded_{knn_comm}", dt / ITERS * 1e3)
+    return ring, k1
+
+
+def phase_sharded_vs_single(grt):
+    """Phase 12: the one-rank 'ring_pallas' step against the single-card
+    'binfold' engine, both on the card, in deterministic mode: index_add_'s
+    atomics sum in a varying order otherwise, and after a few steps that
+    noise alone can flip an intersection test between two runs of the same
+    engine."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _sharded_vs_single(grt)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _sharded_vs_single(grt):
+    adj = regular_union_graph(2000, cycles=3, seed=1)
+    kw = dict(n_components=3, seed=0, verbose=False, init="scipy",
+              **FORCE_PARAMS)
+    single = grt.GraphEmbedderTorch(adj, device="cuda", knn_strategy="binfold",
+                                    **kw)
+    sharded = grt.ShardedGraphEmbedder(adj, mesh=grt.default_mesh(),
+                                       knn_comm="ring_pallas", **kw)
+    if not (single._fused_refs_active and sharded._fused_refs_active):
+        raise AssertionError("sharded vs single: both must fuse the refs")
+    rng = np.random.default_rng(6)
+    for _ in range(5):
+        s = rng.permutation(single.n_edges)[:single.sample_size]
+        single.update_positions(sample_indices=s)
+        sharded.update_positions(sample_indices=s)
+    a, b = sharded.positions, single.positions
+    err = float(np.abs(a - b).max())
+    ok = bool(np.allclose(a, b, rtol=1e-4, atol=1e-5))
+    emit("sharded_vs_single", n=single.n, E=single.n_edges, steps=5,
+         max_abs_err=err, bit_equal=bool(np.array_equal(a, b)), rtol=1e-4,
+         atol=1e-5, allclose=ok)
+    if not ok:
+        raise AssertionError("one-rank ring_pallas disagrees with binfold")
+
+
+def _user_edges(adj):
+    rows, cols = adj.nonzero()
+    mask = rows < cols
+    return np.column_stack([rows[mask], cols[mask]]).astype(np.int64)
+
+
+def rank_worker(rank, world, tmp, backend, profile=False):
+    """One rank of phase 13; writes its checks to ``tmp/rank<r>.json``."""
+    import torch.distributed as dist
+
+    import graphem_rapids_torch as grt
+
+    if backend == "gloo":
+        torch.set_num_threads(1)
+    grt.distributed_init(backend=backend, init_method=f"file://{tmp}/store",
+                         world_size=world, rank=rank)
+    try:
+        return _rank_checks(grt, rank, world, tmp, profile)
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_checks(grt, rank, world, tmp, profile):
+    from graphem_rapids_torch.ops.forces import build_neighbor_table
+    from graphem_rapids_torch.parallel import ring_binfold as rb
+    from graphem_rapids_torch.parallel.sharded_step import (
+        REPLICA_GAP_LIMIT,
+        build_sharded_step,
+        pad_edges,
+    )
+
+    mesh = grt.make_mesh(world)
+    dev = mesh.device
+    adj = regular_union_graph(20_000, cycles=4, seed=2)
+    k = FORCE_PARAMS["n_neighbors"]
+    rng = np.random.default_rng(9)
+
+    # positions stay bit-equal across ranks
+    emb = grt.ShardedGraphEmbedder(adj, mesh=mesh, knn_comm="ring_pallas",
+                                   n_components=3, seed=0, verbose=False,
+                                   init="random", **FORCE_PARAMS)
+    rb.ring_fold.launches = 0
+    for _ in range(5):
+        emb.update_positions(
+            sample_indices=rng.permutation(emb.n_edges)[:emb.sample_size])
+    launches = rb.ring_fold.launches
+    pos = torch.as_tensor(emb.positions, device=dev)
+    every = mesh.all_gather(pos)
+    ranks_equal = all(bool(torch.equal(every[r], pos)) for r in range(world))
+    # generator-drawn samples: every rank draws the same one, and its own
+    # update stays within rounding of rank 0's before the broadcast
+    try:
+        emb.run_layout(3, block_size=3)  # raises past REPLICA_GAP_LIMIT
+        layout_error = None
+    except RuntimeError as e:  # reported below; the ranks go on together
+        layout_error = str(e)
+    nxt = emb._sample()
+    samples_equal = all(bool(torch.equal(x, nxt))
+                        for x in mesh.all_gather(nxt))
+    gap = emb.replica_gap
+
+    # neighbour sets of the sharded step against the virtual ring
+    edges = _user_edges(adj)
+    n, E = adj.shape[0], len(edges)
+    nb = build_neighbor_table(edges, n)
+    edges_p, valid = pad_edges(edges, world)
+    ep = torch.as_tensor(edges_p, device=dev).long()
+    vp = torch.as_tensor(valid, device=dev)
+    start = torch.as_tensor(rng.standard_normal((n, 3)).astype(np.float32),
+                            device=dev)
+    sampled = torch.as_tensor(rng.permutation(E)[:512], device=dev)
+    _, _, ops, raw = build_sharded_step(
+        mesh, n, E, n_components=3, k_attr=0.5, L_min=10.0, k_inter=0.1,
+        n_neighbors=k, sample_size=512, nb=nb, knn_comm="ring_pallas",
+        fused_refs=False, _debug_knn=True, return_raw=True)
+    knn_idx, _ = raw(start, ep, vp, sampled, ops)
+    mids = (start[ep[:, 0]] + start[ep[:, 1]]) / 2.0
+    mids = torch.where(vp[:, None] > 0, mids, torch.full_like(mids, 1e30))
+    E_loc = len(edges_p) // world
+    tiles = list(mids.chunk(world))
+    q = mids[sampled.long()]
+    k_merge = min(k + 1, world * min(k + 1, E_loc))
+    _, vidx, R_pad = rb.ring_binfold_topk_virtual(q, tiles, k_merge)
+    vidx = vidx.long()
+    owner = vidx // R_pad
+    local = torch.clamp(vidx % R_pad, max=E_loc - 1)
+    virtual = (local + owner * E_loc)[:, 1:]
+    sets_equal = bool(torch.equal(torch.sort(knn_idx, dim=1).values,
+                                  torch.sort(virtual, dim=1).values))
+    res = {"rank": rank, "device": str(dev), "ranks_bit_equal": ranks_equal,
+           "ring_binfold_launches": launches, "sets_equal": sets_equal,
+           "samples_equal": samples_equal, "replica_gap": gap,
+           "replica_gap_limit": REPLICA_GAP_LIMIT,
+           "layout_error": layout_error}
+    if dev.type == "cuda" and profile:
+        # the 1M graph across the cards: ms per iteration, rank's own clock
+        adj1m = ring_chords_graph()
+        for comm in ("ring_pallas", "all_gather"):
+            emb = grt.ShardedGraphEmbedder(adj1m, mesh=mesh, knn_comm=comm,
+                                           n_components=3, seed=0,
+                                           verbose=False, init="random",
+                                           **FORCE_PARAMS)
+            emb.run_layout(3, block_size=3)
+            t0 = time.perf_counter()
+            emb.run_layout(20, block_size=10)
+            res[f"ring_chords_1m_{comm}_ms_per_iter"] = \
+                (time.perf_counter() - t0) / 20 * 1e3
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    # one hop per rank per step; the CPU (a gloo rehearsal) has no kernel
+    want = 5 * world if dev.type == "cuda" else 0
+    ok = (ranks_equal and sets_equal and samples_equal and launches == want
+          and gap <= REPLICA_GAP_LIMIT and layout_error is None)
+    return 0 if ok else 1
+
+
+def phase_multi_card(backend="nccl", world=None, profile=False):
+    """Phase 13: several ranks, one process each (skipped on one card)."""
+    if world is None:
+        count = torch.cuda.device_count()
+        if count < 2:
+            emit("multi_card", skipped="1 card")
+            return None
+        world = min(count, 4)
+    env = dict(os.environ)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker",
+             str(r), str(world), tmp, backend]
+            + (["--profile"] if profile else []),
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(world)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        seconds = time.perf_counter() - t0
+        results = []
+        for r in range(world):
+            path = os.path.join(tmp, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    results.append(json.load(f))
+    ok = (all(p.returncode == 0 for p in procs) and len(results) == world)
+    emit("multi_card", ranks=world, backend=backend, seconds=seconds,
+         results=results, ok=ok)
+    if not ok:
+        raise AssertionError("multi-card phase failed:\n" + "\n".join(
+            log[-4000:] for log in logs))
+    return results
+
+
 def main(argv):
+    if argv[:1] == ["--rank-worker"]:
+        return rank_worker(int(argv[1]), int(argv[2]), argv[3], argv[4],
+                           "--profile" in argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    import torch.distributed as dist
+
     import graphem_rapids_torch as grt
     from graphem_rapids_torch import _build
     from graphem_rapids_torch.ops import knn_binfold as bf
     from graphem_rapids_torch.ops import knn_pallas as kp
     from graphem_rapids_torch.ops.knn import knn_exact
+    from graphem_rapids_torch.parallel import ring_binfold as rb
 
     profile = "--profile" in argv
     kind = torch.cuda.get_device_name(0)
@@ -477,8 +912,18 @@ def main(argv):
                                 if "registers" in ln or "spill" in ln]}
                   for k, v in report.items()})
 
+    if "--multi-card" in argv:
+        if phase_multi_card(profile=profile) is None:
+            raise AssertionError("--multi-card needs two or more cards")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
+
     k1 = phase_kernel(bf, fp32_instr_per_s)
     k2 = phase_kernel_k2(kp, knn_exact, fp32_instr_per_s)
+    k3 = phase_kernel_k3(rb, fp32_instr_per_s)
     adj100k, adj1m = regular_union_graph(100_000), ring_chords_graph()
     launches = phase_main(grt, bf, "random_8_regular_100k", adj100k, "flat",
                           "auto", warmup=10, profile=profile)
@@ -492,6 +937,30 @@ def main(argv):
     phase_greedy(grt)
     for strategy in ("binfold", "pallas"):
         phase_card_vs_cpu(grt, strategy)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        grt.distributed_init(backend="nccl", init_method=f"file://{tmp}/store",
+                             world_size=1, rank=0)
+        try:
+            k3_launches, _ = phase_sharded(grt, bf, rb,
+                                           "random_8_regular_100k", adj100k,
+                                           "auto", 10, profile)
+            ring1m, _ = phase_sharded(grt, bf, rb, "ring_chords_1m", adj1m,
+                                      "random", 5, profile)
+            k3_launches += ring1m
+            phase_sharded(grt, bf, rb, "ring_chords_1m", adj1m, "random", 3,
+                          False, knn_comm="all_gather")
+            if profile:
+                # the same one rank without a process group: collectives
+                # return their input, so this prices the NCCL calls above
+                phase_sharded(grt, bf, rb, "ring_chords_1m", adj1m, "random",
+                              5, False, mesh=grt.parallel.Mesh(1, 0, "cuda:0"))
+            phase_sharded_vs_single(grt)
+        finally:
+            # before the store's directory goes: a live group would wait on
+            # it at exit
+            dist.destroy_process_group()
+    phase_multi_card(profile=profile)
 
     print(json.dumps({"kernels": [{
         "name": "knn_binfold",
@@ -517,6 +986,18 @@ def main(argv):
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"],
+    }, {
+        "name": "ring_binfold",
+        "route": "cuda",
+        "source": "graphem_rapids_torch/csrc/ring_binfold.cu",
+        "replaces": "graphem_rapids_tpu/parallel/ring_binfold.py:60",
+        "launches": k3_launches,
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -12,6 +12,12 @@ against; this package never imports it, nor JAX.
 
 Pass ``device='cpu'`` to run on the CPU (the kNN kernels then run their
 plain PyTorch versions); without it every entry point needs a CUDA card.
+
+The sharded tier runs one rank per card over ``torch.distributed``
+(``torchrun --nproc-per-node=N``):
+
+    grt.distributed_init()
+    emb = grt.create_graphem(adj, backend="sharded", knn_comm="ring_pallas")
 """
 
 import logging
@@ -27,9 +33,16 @@ from .influence import (
     ndlib_estimated_influence,
 )
 from .models.embedder import GraphEmbedderTorch
+from .parallel import (
+    ShardedGraphEmbedder,
+    default_mesh,
+    distributed_init,
+    make_mesh,
+)
 from .utils.backend_selection import (
     BackendConfig,
     check_cuda_availability,
+    check_device_count,
     get_default_config,
     get_optimal_backend,
 )
@@ -52,18 +65,20 @@ def create_graphem(adjacency, n_components=2, backend=None, mesh=None,
     adjacency : array-like or scipy.sparse matrix, square.
     n_components : int, default=2 — embedding dimensionality.
     backend : str, optional — force a strategy: 'auto' | 'exact' |
-        'chunked' | 'binfold' | 'pallas' (legacy aliases 'pytorch',
+        'chunked' | 'binfold' | 'pallas' | 'sharded' (legacy aliases 'pytorch',
         'cuda', 'gpu', 'tpu', 'cpu', and 'cuvs'/'rapids', which select
         'pallas'). GRAPHEM_BACKEND, GRAPHEM_PREFER_GPU (or
         GRAPHEM_PREFER_TPU), GRAPHEM_MEMORY_LIMIT and GRAPHEM_VERBOSE are
         honored.
-    mesh : must be None: the sharded multi-device tier is not ported yet.
-    **kwargs : forwarded to GraphEmbedderTorch (``device``, ``seed``, ...).
+    mesh : parallel.mesh.Mesh, optional — the ranks of the 'sharded'
+        strategy; default ``default_mesh()``: every rank of the initialized
+        process group, or one rank without one. Other strategies ignore it.
+    **kwargs : forwarded to GraphEmbedderTorch or ShardedGraphEmbedder
+        (``device``, ``seed``, ``knn_comm``, ...).
 
-    Two differences from the JAX factory, both deliberate: 'chunked' is not
-    moved to the CPU when no accelerator is found (without a card, and
-    without ``device='cpu'``, the engine raises), and 'sharded' raises
-    NotImplementedError.
+    One difference from the JAX factory, deliberate: 'chunked' is not moved
+    to the CPU when no accelerator is found (without a card, and without
+    ``device='cpu'``, the engine raises).
     """
     if "index_type" in kwargs:
         # graphem-rapids' cuVS index knob: there is no ANN index to build
@@ -71,11 +86,6 @@ def create_graphem(adjacency, n_components=2, backend=None, mesh=None,
         idx = kwargs.pop("index_type")
         logging.getLogger(__name__).info(
             "index_type=%r ignored: the engine has no ANN index", idx
-        )
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded multi-device tier is not ported yet (ROADMAP "
-            "Queue 1, item 12)"
         )
     n_vertices = adjacency.shape[0]
     # undirected i<j edges ~ nnz / 2 on a symmetric matrix
@@ -92,9 +102,8 @@ def create_graphem(adjacency, n_components=2, backend=None, mesh=None,
 
     strategy = get_optimal_backend(config)
     if strategy == "sharded":
-        raise NotImplementedError(
-            "the 'sharded' strategy (the multi-device tier) is not ported "
-            "yet (ROADMAP Queue 1, item 12)"
+        return ShardedGraphEmbedder(
+            adjacency, n_components=n_components, mesh=mesh, **kwargs
         )
     return GraphEmbedderTorch(
         adjacency, n_components=n_components, knn_strategy=strategy, **kwargs
@@ -103,16 +112,24 @@ def create_graphem(adjacency, n_components=2, backend=None, mesh=None,
 
 def get_backend_info():
     """Hardware and strategy availability: torch and CUDA versions, the
-    CUDA device count and name, and the recommended strategy."""
+    CUDA device count and name, the ranks of the process group (1 without
+    one), and the recommended strategy: 'sharded' across several ranks,
+    else 'auto' on a card (the engine resolves the kernel itself) and
+    'chunked' without one."""
     cuda = check_cuda_availability()
+    ranks = check_device_count()
+    if ranks > 1:
+        recommended = "sharded"
+    else:
+        recommended = "auto" if cuda else "chunked"
     return {
         "torch_version": torch.__version__,
         "cuda_version": torch.version.cuda,
         "cuda_available": cuda,
         "cuda_device_count": torch.cuda.device_count() if cuda else 0,
         "cuda_device_name": torch.cuda.get_device_name(0) if cuda else None,
-        # the engine resolves the kernel itself on the card
-        "recommended_backend": "auto" if cuda else "chunked",
+        "distributed_ranks": ranks,
+        "recommended_backend": recommended,
     }
 
 
@@ -122,6 +139,10 @@ __all__ = [
     "GraphEmbedderTorch",
     "GraphEmbedderPyTorch",
     "GraphEmbedderCuVS",
+    "ShardedGraphEmbedder",
+    "make_mesh",
+    "default_mesh",
+    "distributed_init",
     "graphem_seed_selection",
     "ndlib_estimated_influence",
     "estimated_influence",

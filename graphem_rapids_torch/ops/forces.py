@@ -502,9 +502,13 @@ def masked_slot_midpoints(pv, pn, rc, valid):
     return torch.where(valid.reshape(-1)[:, None], mid.reshape(-1, d), pad)
 
 
-def overflow_midpoints(positions, overflow_lt):
-    """(O2, d) midpoints of the overflow (i<j) edges."""
-    return (positions[overflow_lt[:, 0]] + positions[overflow_lt[:, 1]]) * 0.5
+def overflow_midpoints(positions, overflow_lt, active=True):
+    """(O2, d) midpoints of the overflow (i<j) edges; all REF_PAD_VALUE
+    when not ``active`` (the sharded tier keeps them on one rank only)."""
+    mid = (positions[overflow_lt[:, 0]] + positions[overflow_lt[:, 1]]) * 0.5
+    if not active:
+        mid = torch.full_like(mid, REF_PAD_VALUE)
+    return mid
 
 
 def midpoint_refs_from_gathered(positions, pn, ref_cap, ref_valid,

@@ -9,12 +9,15 @@ engine is one; this layer picks its kNN strategy and device tier:
 - 'approx'  : not ported yet (raises in the engine)
 - 'binfold' : the bin-fold kernel
 - 'pallas'  : the exact tiled kNN kernel (the name is the API's)
-- 'sharded' : the multi-device tier, not ported yet
+- 'sharded' : the multi-card tier (parallel/, one rank per card)
 
 The accelerator is a CUDA card: ``check_cuda_availability`` takes the place
-of the JAX package's TPU probe and ``torch.cuda.device_count`` its device
-count. For the same inputs and the same answer to "is there an
-accelerator", ``get_optimal_backend`` returns what the JAX function returns.
+of the JAX package's TPU probe, and the ranks of the initialized
+``torch.distributed`` process group that of its global device count: the
+sharded tier runs one rank per card, so the cards of the host that no rank
+drives cannot be sharded over. For the same inputs, the same answer to "is
+there an accelerator" and the same device count, ``get_optimal_backend``
+returns what the JAX function returns.
 
 Environment variables: GRAPHEM_BACKEND, GRAPHEM_PREFER_GPU (alias
 GRAPHEM_PREFER_TPU), GRAPHEM_MEMORY_LIMIT, GRAPHEM_VERBOSE.
@@ -26,6 +29,7 @@ import os
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 
 logger = logging.getLogger(__name__)
 
@@ -62,7 +66,7 @@ class BackendConfig:
     prefer_tpu: bool = True
     memory_limit: float | None = None  # GB
     verbose: bool = False
-    # None = count the local CUDA devices at decision time
+    # None = count the ranks of the process group at decision time
     mesh_devices: int | None = field(default=None)
 
     def __post_init__(self):
@@ -93,8 +97,11 @@ def check_cuda_availability():
 
 
 def check_device_count():
-    """Number of CUDA devices (1 when there is none: the host)."""
-    return max(torch.cuda.device_count(), 1)
+    """Ranks of the initialized process group, 1 without one: the devices
+    the sharded tier can shard over."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
 
 
 def get_data_complexity_score(n_vertices, n_components):

@@ -241,11 +241,60 @@ def test_factory_defaults_and_options(caplog):
 
 @pytest.mark.fast
 def test_factory_sharded_raises():
+    """The sharded tier is ported; what it leaves out still raises."""
     adj = _ring(100)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        grt.create_graphem(adj, backend="sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        grt.create_graphem(adj, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="slot"):
+        grt.create_graphem(adj, backend="sharded", device="cpu",
+                           ref_order="slot")
+    with pytest.raises(ValueError, match="knn_comm"):
+        grt.create_graphem(adj, backend="sharded", device="cpu",
+                           knn_comm="nccl")
+    with pytest.raises(ValueError, match="process group"):
+        grt.make_mesh(4)
+
+
+@pytest.mark.fast
+def test_factory_builds_sharded_on_one_rank():
+    adj = _ring(300, chords=200)
+    emb = grt.create_graphem(adj, n_components=3, backend="sharded",
+                             device="cpu", verbose=False, seed=0,
+                             init="random")
+    assert isinstance(emb, grt.ShardedGraphEmbedder)
+    assert emb.mesh.world_size == 1 and emb.mesh.group is None
+    assert emb._resolved_strategy() == "sharded"
+    mesh = grt.make_mesh(device="cpu")
+    emb2 = grt.create_graphem(adj, n_components=3, backend="sharded",
+                              mesh=mesh, verbose=False, seed=0,
+                              init="random", knn_comm="ring")
+    assert emb2.mesh is mesh and emb2.knn_comm == "ring"
+    # other strategies ignore mesh=, as the JAX factory does
+    assert type(grt.create_graphem(adj, mesh=mesh, device="cpu",
+                                   verbose=False, seed=0)) \
+        is grt.GraphEmbedderTorch
+    pos = emb.run_layout(3)
+    assert np.isfinite(pos).all()
+
+
+@pytest.mark.fast
+def test_device_count_is_process_group_ranks(monkeypatch):
+    """Four cards but no process group: nothing to shard over, so a 1M
+    vertex graph takes the single-card tier; four ranks take 'sharded'."""
+    from graphem_rapids_torch.utils.backend_selection import dist
+
+    monkeypatch.setattr(tbs, "check_cuda_availability", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    config = tbs.BackendConfig(n_vertices=1_000_000, n_components=3,
+                               n_edges=3_999_991)
+    assert tbs.check_device_count() == 1
+    assert tbs.get_optimal_backend(config) == "auto"
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 4)
+    assert tbs.check_device_count() == 4
+    assert tbs.get_optimal_backend(config) == "sharded"
+    info = grt.get_backend_info()
+    assert info["distributed_ranks"] == 4
+    assert info["recommended_backend"] == "sharded"
 
 
 @pytest.mark.fast
