@@ -94,15 +94,133 @@ def binfold_bins_reference(queries, refs, T, G, n_super):
     return vals, idx
 
 
+def fold_queries_per_block(dim):
+    """Queries each kernel thread keeps in registers: 16 at d <= 3, else 8."""
+    return 16 if dim <= 3 else 8
+
+
+def fold_plan(S, G, n_super, sm_count, dim, blocks_per_sm):
+    """(qb, n_qblk, units, n_blocks) of the kernel's work plan.
+
+    The work is ``units`` = G * n_qblk * n_super units (bin group g, query
+    block of qb queries, super-tile s), numbered in that order, s fastest.
+    The grid is n_blocks = min(units, sm_count * blocks_per_sm): one wave
+    of the card's resident blocks, and block b takes the units of
+    ``fold_ranges(units, n_blocks)[b]``.
+    """
+    qb = fold_queries_per_block(dim)
+    n_qblk = -(-S // qb)
+    units = G * n_qblk * n_super
+    return qb, n_qblk, units, max(1, min(units, sm_count * blocks_per_sm))
+
+
+def fold_ranges(units, n_blocks):
+    """Block b's units [b * units // n_blocks, (b+1) * units // n_blocks)."""
+    return [(b * units // n_blocks, (b + 1) * units // n_blocks)
+            for b in range(n_blocks)]
+
+
+def fold_runs(units, n_blocks, n_super):
+    """Each block's runs, as (block, segment, s0, s1): the super-tiles
+    [s0, s1) of segment (g, query block) = divmod(segment, n_qblk) that the
+    block folds. A run with (s0, s1) != (0, n_super) is a piece."""
+    runs = []
+    for b, (u0, u1) in enumerate(fold_ranges(units, n_blocks)):
+        u = u0
+        while u < u1:
+            seg, s0 = divmod(u, n_super)
+            s1 = min(n_super, s0 + u1 - u)
+            runs.append((b, seg, s0, s1))
+            u += s1 - s0
+    return runs
+
+
+def pack_keys(vals, idx):
+    """64-bit keys (bits(value) << 32) | index, as int64: for values >= +0
+    they order as (value, index)."""
+    hi = vals.to(torch.float32).view(torch.int32).to(torch.int64)
+    return (hi << 32) | (idx.to(torch.int64) & 0xFFFFFFFF)
+
+
+def unpack_keys(keys):
+    vals = (keys >> 32).to(torch.int32).view(torch.float32)
+    return vals, (keys & 0xFFFFFFFF).to(torch.int32)
+
+
+def binfold_pieces_reference(queries, refs, T, G, n_super, n_blocks):
+    """Plain model of the kernel's plan: (vals, idx) as
+    binfold_bins_reference gives them.
+
+    Each run of ``fold_runs`` folds its super-tiles for its bin group and
+    query block in visit order (first strict minimum, from (3.0e38, 0));
+    the runs of a segment are then combined by the minimum of their
+    ``pack_keys``.
+    """
+    S, dim = queries.shape
+    E = refs.shape[0]
+    E_pad = n_super * G * T
+    C = T // _LANES
+    qb, n_qblk, units, _ = fold_plan(S, G, n_super, 1, dim, 1)
+    q = torch.zeros((n_qblk * qb, dim), dtype=torch.float32,
+                    device=queries.device)
+    q[:S] = queries.to(torch.float32)
+    r = torch.full((E_pad, dim), _PAD_COORD, dtype=torch.float32,
+                   device=refs.device)
+    r[:E] = refs.to(torch.float32)
+    d = torch.zeros((q.shape[0], E_pad), dtype=torch.float32, device=q.device)
+    for c in range(dim):
+        diff = q[:, c:c + 1] - r[:, c]
+        d = d + diff * diff
+    # (query, s, g, c, lane), p = (s * G + g) * T + c * 128 + lane
+    d = d.view(-1, n_super, G, C, _LANES)
+    p_all = torch.arange(E_pad, device=q.device).view(n_super, G, C, _LANES)
+    keys = torch.full((q.shape[0], G * _LANES), 0, dtype=torch.int64,
+                      device=q.device)
+    keys[:] = pack_keys(torch.tensor(_BIG), torch.tensor(0))
+    for _, seg, s0, s1 in fold_runs(units, n_blocks, n_super):
+        g, qblk = divmod(seg, n_qblk)
+        rows = slice(qblk * qb, (qblk + 1) * qb)
+        dd = d[rows, s0:s1, g].reshape(qb, (s1 - s0) * C, _LANES)
+        vals, j = torch.min(dd, dim=1)  # the first minimum in visit order
+        p = p_all[s0:s1, g].reshape((s1 - s0) * C, _LANES)
+        p = torch.gather(p.expand(qb, -1, -1), 1, j[:, None, :])[:, 0]
+        keep = vals < _BIG
+        vals = torch.where(keep, vals, torch.full_like(vals, _BIG))
+        p = torch.where(keep, p, torch.zeros_like(p))
+        cols = slice(g * _LANES, (g + 1) * _LANES)
+        keys[rows, cols] = torch.minimum(keys[rows, cols], pack_keys(vals, p))
+    vals, idx = unpack_keys(keys[:S])
+    return vals, idx
+
+
 def _kernel_fn():
     fn = _build.load("binfold").graphem_binfold_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     return fn
+
+
+_occupancy = {}
+
+
+def _blocks_per_sm(device, dim):
+    """Resident blocks per SM of the kernel for ``dim``, as the card
+    reports."""
+    if (device, dim) not in _occupancy:
+        fn = _build.load("binfold").graphem_binfold_blocks_per_sm
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int]
+        with torch.cuda.device(device):
+            n = fn(dim)
+        if n < 1:
+            raise RuntimeError(f"binfold occupancy query failed: {n}")
+        _occupancy[(device, dim)] = n
+    return _occupancy[(device, dim)]
 
 
 def binfold_bins_cuda(queries, refs, T, G, n_super):
@@ -119,18 +237,31 @@ def binfold_bins_cuda(queries, refs, T, G, n_super):
         raise ValueError(f"T must be a multiple of {_LANES}, got {T}")
     if n_super * G * T >= 2**31:
         raise ValueError("binfold kernel indices are int32: too many refs")
+    if E > n_super * G * T:
+        raise ValueError(f"{E} refs exceed the {n_super} x {G} x {T} tiles")
     queries = queries.contiguous()
     refs = refs.contiguous()
-    out_vals = torch.empty((S, G * _LANES), dtype=torch.float32,
-                           device=queries.device)
-    out_idx = torch.empty((S, G * _LANES), dtype=torch.int32,
-                          device=queries.device)
+    dev = queries.device
+    out_vals = torch.empty((S, G * _LANES), dtype=torch.float32, device=dev)
+    out_idx = torch.empty((S, G * _LANES), dtype=torch.int32, device=dev)
+    if S == 0:
+        return out_vals, out_idx
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    qb, n_qblk, _, n_blocks = fold_plan(S, G, n_super, sm_count, dim,
+                                        _blocks_per_sm(dev, dim))
+    part_v = torch.empty((n_blocks, 2, qb, _LANES), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((n_blocks, 2, qb, _LANES), dtype=torch.int32,
+                         device=dev)
+    seg_done = torch.empty((G * n_qblk,), dtype=torch.int32, device=dev)
     fn = _kernel_fn()
-    with torch.cuda.device(queries.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         knn_binfold.launches += 1
         rc = fn(queries.data_ptr(), refs.data_ptr(), out_vals.data_ptr(),
-                out_idx.data_ptr(), S, E, dim, T, G, n_super, stream)
+                out_idx.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
+                seg_done.data_ptr(), S, E, dim, T, G, n_super, n_blocks,
+                stream)
     if rc != 0:
         raise RuntimeError(f"binfold kernel launch failed: CUDA error {rc}")
     return out_vals, out_idx

@@ -17,7 +17,9 @@ ascending (squared distance, index) order, without materializing the
 ``knn_tiled_reference`` is the plain PyTorch version: the wrapper runs it
 for tensors on the CPU (the tests hold it against the JAX kernel in
 interpret mode); for a CUDA tensor the wrapper launches the kernel or
-raises.
+raises. ``slice_plan``, ``knn_slices_reference`` and ``shown_bound`` model
+the kernel's slices, their merge and the bound they share, so that the CPU
+tests hold the plan to the plain version.
 """
 
 import ctypes
@@ -31,11 +33,12 @@ MAX_K = 128
 _BIG = 3.0e38
 # Ref chunk of the plain version: bounds its (S, chunk) working set.
 _REF_CHUNK = 65536
-# Pass 1 of the kernel: warps per block, blocks per SM it aims for, and the
-# fewest refs per slice.
-_WARPS_PER_BLOCK = 4
-_BLOCKS_PER_SM = 8
-_MIN_SLICE = 4096
+# Pass 1 of the kernel: queries per block (8 warps of 4), slice lengths a
+# multiple of 512 refs (so every staged tile but a slice's last is whole),
+# and the fewest refs per slice.
+QUERIES_PER_BLOCK = 32
+_SLICE_ALIGN = 512
+_MIN_SLICE = 2048
 
 
 def knn_tiled_reference(queries, refs, k):
@@ -71,29 +74,108 @@ def knn_tiled_reference(queries, refs, k):
     return idx.to(torch.int32), vals
 
 
+def knn_slices_reference(queries, refs, k, n_slices, slice_len,
+                         threshold=None):
+    """Plain model of the kernel's two passes: (indices, values) as
+    knn_tiled_reference gives them.
+
+    Pass 1: each slice [p * slice_len, (p+1) * slice_len) keeps its own
+    first k refs in (value, index) order. ``threshold`` (S,) stands for the
+    per-query bound the kernel's slices share: a slice takes only refs with
+    d <= threshold, so its list is its first k among those, then
+    (3.0e38, 0). Any threshold at or above the query's final k-th value
+    leaves the answer unchanged. Pass 2: the lists, in slice order, are
+    merged by (value, index).
+    """
+    S = queries.shape[0]
+    lists_v, lists_i = [], []
+    for p in range(n_slices):
+        lo = p * slice_len
+        idx, vals = knn_tiled_reference(queries, refs[lo:lo + slice_len], k)
+        idx = idx + lo
+        if threshold is not None:
+            drop = vals > threshold[:, None]
+            vals = torch.where(drop, torch.full_like(vals, _BIG), vals)
+            idx = torch.where(drop, torch.zeros_like(idx), idx)
+        # entries past the slice's refs are (3.0e38, 0), not (3.0e38, lo)
+        idx = torch.where(vals < _BIG, idx, torch.zeros_like(idx))
+        lists_v.append(vals)
+        lists_i.append(idx)
+    cand_v = torch.cat(lists_v, dim=1)
+    cand_i = torch.cat(lists_i, dim=1).to(torch.int64)
+    # lexicographic (value, index): sort by index, then stably by value
+    by_i = torch.argsort(cand_i, dim=1, stable=True)
+    cand_v, cand_i = torch.gather(cand_v, 1, by_i), torch.gather(cand_i, 1, by_i)
+    by_v = torch.argsort(cand_v, dim=1, stable=True)[:, :k]
+    vals = torch.gather(cand_v, 1, by_v).reshape(S, k)
+    idx = torch.gather(cand_i, 1, by_v).reshape(S, k)
+    return idx.to(torch.int32), vals
+
+
+def shown_bound(lists_v, k):
+    """Plain model of the bound the kernel's slices share: (S,) values at
+    or above each query's final k-th value.
+
+    ``lists_v`` (n_slices, S, k) holds each slice's sorted list values
+    (3.0e38 past its real entries). A slice shows the value at rank
+    r = ceil(k / n_slices) of its list; m = ceil(k / r) shown values from
+    distinct slices stand for m * r >= k refs, so the m-th smallest shown
+    value bounds the k-th value from above. With fewer than m real shown
+    values the bound is 3.0e38.
+    """
+    n = lists_v.shape[0]
+    r = -(-k // n)
+    m = -(-k // r)
+    shown = lists_v[:, :, r - 1]
+    return torch.sort(shown, dim=0).values[m - 1]
+
+
 def _kernel_fn():
     fn = _build.load("knn_tiled").graphem_knn_tiled_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ]
     return fn
 
 
-def slice_plan(S, E, sm_count):
-    """(n_slices, slice_len) of the kernel's pass 1: enough (query block,
-    ref slice) blocks for _BLOCKS_PER_SM per SM, with at least _MIN_SLICE
-    refs per slice; slice_len is a multiple of 32 (one ref per lane per
-    step)."""
+_occupancy = {}
+
+
+def _blocks_per_sm(device, dim, k):
+    """Resident pass-1 blocks per SM, as the card reports for the kernel
+    instantiated for (dim, k)."""
+    key = (device, min(dim, 9), _cdiv(k, 32))
+    if key not in _occupancy:
+        fn = _build.load("knn_tiled").graphem_knn_tiled_blocks_per_sm
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        with torch.cuda.device(device):
+            n = fn(dim, k)
+        if n < 1:
+            raise RuntimeError(f"tiled kNN occupancy query failed: {n}")
+        _occupancy[key] = n
+    return _occupancy[key]
+
+
+def slice_plan(S, E, sm_count, blocks_per_sm):
+    """(n_slices, slice_len) of the kernel's pass 1.
+
+    The grid is (query blocks, slices). Slices are cut so that the grid is
+    one whole wave of the card's resident blocks (sm_count *
+    blocks_per_sm) where the query blocks leave room, with at least
+    _MIN_SLICE refs per slice; slice_len is a multiple of _SLICE_ALIGN, so
+    only the last slice is ragged.
+    """
     if E == 0:
-        return 1, 32
-    q_blocks = _cdiv(S, _WARPS_PER_BLOCK)
-    n = min(_cdiv(_BLOCKS_PER_SM * sm_count, q_blocks), _cdiv(E, _MIN_SLICE),
-            65535)
-    slice_len = _cdiv(_cdiv(E, n), 32) * 32
+        return 1, _SLICE_ALIGN
+    q_blocks = _cdiv(S, QUERIES_PER_BLOCK)
+    n = max(1, (sm_count * blocks_per_sm) // q_blocks)
+    n = min(n, _cdiv(E, _MIN_SLICE), 65535)
+    slice_len = _cdiv(_cdiv(E, n), _SLICE_ALIGN) * _SLICE_ALIGN
     return _cdiv(E, slice_len), slice_len
 
 
@@ -121,19 +203,22 @@ def knn_tiled_cuda(queries, refs, k):
         return out_i, out_v
     queries = queries.contiguous()
     refs = refs.contiguous()
-    sm_count = torch.cuda.get_device_properties(
-        queries.device).multi_processor_count
-    n_slices, slice_len = slice_plan(S, E, sm_count)
+    dev = queries.device
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_slices, slice_len = slice_plan(S, E, sm_count,
+                                     _blocks_per_sm(dev, dim, k))
     part = (n_slices, S, k) if n_slices > 1 else (0,)
-    part_v = torch.empty(part, dtype=torch.float32, device=queries.device)
-    part_i = torch.empty(part, dtype=torch.int32, device=queries.device)
+    part_v = torch.empty(part, dtype=torch.float32, device=dev)
+    part_i = torch.empty(part, dtype=torch.int32, device=dev)
+    thresh = torch.empty((S * (1 + n_slices),), dtype=torch.float32,
+                         device=dev)
     fn = _kernel_fn()
-    with torch.cuda.device(queries.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         knn_pallas.launches += 1
         rc = fn(queries.data_ptr(), refs.data_ptr(), part_v.data_ptr(),
-                part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-                S, E, dim, k, n_slices, slice_len, stream)
+                part_i.data_ptr(), thresh.data_ptr(), out_v.data_ptr(),
+                out_i.data_ptr(), S, E, dim, k, n_slices, slice_len, stream)
     if rc != 0:
         raise RuntimeError(f"tiled kNN kernel launch failed: CUDA error {rc}")
     return out_i, out_v

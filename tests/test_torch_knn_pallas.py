@@ -132,14 +132,90 @@ def test_limits_and_wrapper_guards():
 
 
 @pytest.mark.fast
-@pytest.mark.parametrize("S,E", [(512, 399_984), (512, 3_999_991), (7, 9001),
-                                 (1, 100), (5000, 50_000)])
-def test_slice_plan_covers_refs(S, E):
-    n_slices, slice_len = tkp.slice_plan(S, E, sm_count=132)
-    assert slice_len % 32 == 0
+@pytest.mark.parametrize("S,E,bps", [(512, 399_984, 3), (512, 3_999_991, 3),
+                                     (7, 9001, 3), (1, 100, 1),
+                                     (5000, 50_000, 3), (500, 399_984, 2),
+                                     (65, 1_000_000, 4)])
+def test_slice_plan_covers_refs(S, E, bps):
+    """Slices cover every ref exactly once, and the pass-1 grid is at most
+    one wave of the resident blocks unless the query blocks alone exceed
+    it."""
+    n_slices, slice_len = tkp.slice_plan(S, E, sm_count=132,
+                                         blocks_per_sm=bps)
+    assert slice_len % tkp._SLICE_ALIGN == 0
     assert 1 <= n_slices <= 65535
     assert (n_slices - 1) * slice_len < E <= n_slices * slice_len
     assert n_slices == 1 or 2 * slice_len >= tkp._MIN_SLICE
+    q_blocks = -(-S // tkp.QUERIES_PER_BLOCK)
+    assert q_blocks * n_slices <= max(q_blocks, 132 * bps)
+    if (S, E) == (512, 399_984) and bps == 3:  # 16 query blocks x 24 slices
+        assert (q_blocks, n_slices) == (16, 24)
+
+
+def _tied_across_slices(S, E, d, n_slices, slice_len, seed=9):
+    """Each slice's first ref equals the previous slice's last, and some
+    queries sit on such a pair: ties at distance 0 across the boundary."""
+    q, r = _inputs(S, E, d, seed)
+    cuts = [p * slice_len for p in range(1, n_slices)]
+    for c in cuts:
+        r[c] = r[c - 1]
+    for i, c in enumerate(cuts[:S]):
+        q[i] = r[c]
+    return q, r
+
+
+SLICED = {
+    # name: (inputs, k, n_slices, slice_len)
+    "k1_three_slices": (lambda: _inputs(20, 3000, 3, seed=10), 1, 3, 1024),
+    "k17_ragged_S": (lambda: _inputs(67, 3000, 3, seed=11), 17, 5, 640),
+    "k33": (lambda: _inputs(9, 4000, 2, seed=12), 33, 4, 1024),
+    "k128": (lambda: _inputs(5, 2000, 3, seed=13), 128, 3, 700),
+    "ties_across_slices": (lambda: _tied_across_slices(16, 4096, 3, 4, 1024),
+                           16, 4, 1024),
+    "fewer_than_k": (lambda: _with_pads(8, 1500, 3), 12, 3, 512),
+}
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("name", sorted(SLICED))
+def test_slices_merge_to_reference(name):
+    """The kernel's two passes, modelled plainly: per-slice lists merged in
+    slice order by (value, index) give knn_tiled_reference bit for bit,
+    with or without the shared threshold (any bound at or above the final
+    k-th value, here the tightest one, where ties sit exactly on it)."""
+    make, k, n_slices, slice_len = SLICED[name]
+    q, r = make()
+    qt, rt = torch.from_numpy(q), torch.from_numpy(r)
+    ri, rv = tkp.knn_tiled_reference(qt, rt, k)
+    for threshold in (None, rv[:, -1], rv[:, -1] * 2):
+        si, sv = tkp.knn_slices_reference(qt, rt, k, n_slices, slice_len,
+                                          threshold)
+        assert torch.equal(si, ri) and torch.equal(sv, rv)
+    if name == "ties_across_slices":
+        assert (rv[:3, :2] == 0).all()  # the tie at distance 0 ...
+        assert (ri[:3, 0] < ri[:3, 1]).all()  # ... keeps the smaller index
+    if name == "fewer_than_k":
+        assert (rv[:, 5:] == 3.0e38).all() and (ri[:, 5:] == 0).all()
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("name", sorted(SLICED))
+def test_shown_bound_keeps_the_answer(name):
+    """The bound the slices share (each slice's value at rank ceil(k / n),
+    the ceil(k / rank)-th smallest of those) is at or above every query's
+    k-th value, and pruning each slice's list at it, ties kept, leaves the
+    merged answer unchanged."""
+    make, k, n_slices, slice_len = SLICED[name]
+    q, r = make()
+    qt, rt = torch.from_numpy(q), torch.from_numpy(r)
+    ri, rv = tkp.knn_tiled_reference(qt, rt, k)
+    lists = torch.stack([
+        tkp.knn_tiled_reference(qt, rt[p * slice_len:(p + 1) * slice_len],
+                                k)[1] for p in range(n_slices)])
+    bound = tkp.shown_bound(lists, k)
+    assert (bound >= rv[:, -1]).all()
+    si, sv = tkp.knn_slices_reference(qt, rt, k, n_slices, slice_len, bound)
+    assert torch.equal(si, ri) and torch.equal(sv, rv)
 
 
 @pytest.fixture
@@ -149,10 +225,36 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _card_tied_across_slices():
+    """Ties at distance 0 across every slice boundary of the plan the card
+    makes for S=512 against 200,000 refs."""
+    dev = torch.device("cuda")
+    n_slices, slice_len = tkp.slice_plan(
+        512, 200_000, torch.cuda.get_device_properties(dev).multi_processor_count,
+        tkp._blocks_per_sm(dev, 3, 16))
+    return _tied_across_slices(512, 200_000, 3, n_slices, slice_len)
+
+
+# the kernel's plan edges, on the card only (the JAX interpreter is slow)
+CARD_CASES = {
+    **CASES,
+    "midpoints_100k": (lambda: _inputs(512, 399_984, 3, seed=20), 16),
+    "ties_across_slices": (_card_tied_across_slices, 16),
+    "one_query_many_slices": (lambda: _inputs(1, 300_000, 3, seed=21), 16),
+    "S_not_multiple_k33": (lambda: _inputs(100, 150_000, 3, seed=22), 33),
+    "k128_many_blocks": (lambda: _inputs(300, 150_000, 3, seed=23), 128),
+    "d1": (lambda: _inputs(64, 100_000, 1, seed=24), 16),
+    "d8": (lambda: _inputs(64, 100_000, 8, seed=25), 16),
+    "d11_generic": (lambda: _inputs(40, 30_000, 11, seed=26), 9),
+    "pads_fewer_than_k_big": (lambda: _with_pads(70, 120_000, 3), 16),
+    "one_slice": (lambda: _inputs(5000, 2000, 3, seed=27), 16),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(CARD_CASES))
 def test_kernel_matches_plain(cuda_device, name):
-    make, k = CASES[name]
+    make, k = CARD_CASES[name]
     q, r = make()
     qt = torch.from_numpy(q).to(cuda_device)
     rt = torch.from_numpy(r).to(cuda_device)
