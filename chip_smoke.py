@@ -63,19 +63,29 @@ Phases:
 10. K3 against its plain version: one ring hop (the fold of a rank's ref
     tile, ids rank * R_pad + p, and the min-merge with the carry) by the
     kernel and by ring_fold_reference, at hop 0 and at later hops with a
-    carry: one rank at S=512 against the main path's two shapes (the 100K
-    graph's 800,000 fused refs and the 1M graph's 5,699,741, the shape
-    timed below), the 1M graph's refs over 4 virtual ranks at S=512
-    (S_loc=128) and over 8 (S_loc=64), one rank at the full count on 64
-    queries, ragged tiles with 1e30 pads at S=500 (query pad rows) for d=2
-    and d=4, and a tile duplicated on two ranks (every bin ties; the carry
-    must win). The plain version runs on 64 query rows at a time (the fold
-    is row by row). Bins and ids must be bit-equal. The whole virtual ring
+    carry, each line with the hop's fold plan (units, blocks, pieces): one
+    rank at S=512 against the main path's two shapes (800,000 and
+    5,699,741 fused refs), the 1M graph's refs over 4 virtual ranks
+    (S_loc=128) and over 8 (S_loc=64), one rank on 64 queries, ragged
+    tiles with 1e30 pads at S=500 for d=2 and d=4, a tile duplicated on
+    two ranks (every bin ties; the carry must win), fewer units than
+    resident blocks, d=1 and d=8 (8 queries a thread), refs repeating
+    every G*T positions on every rank (ties across every piece boundary
+    and against the carry, which must come out unchanged: the 1M shape on
+    64 queries and a 4-rank tile at hop 3), and merges in place on the
+    carry (as the ring runs from its second hop), at the one-rank 1M
+    shape among others. The plain version runs on 64 query rows at a
+    time. Bins and ids must be bit-equal. The whole virtual ring
     (ring_binfold_topk_virtual) with the kernel against the same with the
-    plain version: equal distances, identical neighbour sets. Times: the
-    kernel per hop at the one-rank 1M shape (S_loc=512, R_pad=5,701,632;
-    per call and back to back, as in phase 3), and on 64 queries beside
-    the plain version there, and the bound;
+    plain version: equal distances, identical neighbour sets. Then
+    ptxas's registers and spills of the ring kernel at d=3 (no spill
+    allowed), and the kernel's time per call and back to back (with the
+    scratch made once, as the ring does, and with a scratch of its own
+    each call) beside its bound and the plain version's on all the
+    queries at three shapes: the one-rank 1M shape
+    (S_loc=512, R_pad=5,701,632), 64 queries against the same refs, and
+    a four-card tile (S_loc=128, E_loc=1,424,936, offset 3 * R_pad) merged
+    in place into a carry;
 11. the sharded path: distributed_init starts a one-rank NCCL group (a
     file:// store in a temporary directory); ShardedGraphEmbedder with
     knn_comm='ring_pallas' on both graphs, warm-up, then 50 timed
@@ -275,9 +285,9 @@ def phase_kernel(bf, fp32_instr_per_s, build_report):
     if not ptx or spills(ptx):
         raise AssertionError(f"binfold kernel at d=3: {ptx}")
     out = {"max_abs_err": err_main}
-    # the plain version on all 512 rows at 100K, as before; at 1M on 64
-    # rows (an (S, E_pad) block of 11.7 GB otherwise), times S / 64
-    for label, qq, rr, plain_rows in (("100k", q, r, S), ("1m", q1m, r1m, 64)):
+    # the plain version on all 512 rows: in one call at 100K, as before; at
+    # 1M 64 rows a call (an (S, E_pad) block of 11.7 GB otherwise)
+    for label, qq, rr, rows in (("100k", q, r, S), ("1m", q1m, r1m, 64)):
         E = rr.shape[0]
         G, n_super = bf._geometry(E, T, 24)
         b2b = {}
@@ -287,9 +297,10 @@ def phase_kernel(bf, fp32_instr_per_s, build_report):
                 lambda: bf.binfold_bins_cuda(qs, rr, T, G, n_super))
         ms = cuda_ms(lambda: bf.binfold_bins_cuda(qq, rr, T, G, n_super))
         plain_ms = cuda_ms(
-            lambda: bf.binfold_bins_reference(qq[:plain_rows], rr, T, G,
-                                              n_super),
-            reps=20 if plain_rows == S else 3, warmup=1) * S / plain_rows
+            lambda: [bf.binfold_bins_reference(qq[i:i + rows], rr, T, G,
+                                               n_super)
+                     for i in range(0, S, rows)],
+            reps=20 if rows == S else 3, warmup=1)
         E_pad = n_super * G * T
         # per pair d subtractions, d multiplies, d - 1 adds (0 + x is x),
         # the compare and the two selects of (value, index)
@@ -300,7 +311,8 @@ def phase_kernel(bf, fp32_instr_per_s, build_report):
         bound = max(ops_ms, bytes_ms)
         emit("kernel_time", name="knn_binfold", shape=label, S=S, E=E,
              E_pad=E_pad, d=d, kernel_ms=ms, back_to_back_ms=b2b[512],
-             plain_ms=plain_ms, plain_rows=plain_rows, ops=ops, bytes=nbytes,
+             plain_ms=plain_ms, plain_rows_per_call=rows, ops=ops,
+             bytes=nbytes,
              ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
              share_of_bound=bound / ms,
              share_of_bound_back_to_back=bound / b2b[512],
@@ -629,9 +641,10 @@ def phase_card_vs_cpu(grt, strategy):
         raise AssertionError(f"card and CPU trajectories disagree ({strategy})")
 
 
-def phase_kernel_k3(rb, fp32_instr_per_s):
+def phase_kernel_k3(rb, bf, fp32_instr_per_s, build_report):
     """Phase 10: K3 against its plain version on the card."""
     gen = torch.Generator(device="cpu").manual_seed(2)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     k = FORCE_PARAMS["n_neighbors"] + 1
     refs_1m = 5_699_741  # the 1M graph's fused refs
 
@@ -640,12 +653,28 @@ def phase_kernel_k3(rb, fp32_instr_per_s):
         r[torch.randperm(E, generator=gen)[:E // 40]] = 1e30
         return r.cuda()
 
+    def periodic(E, d, T, G):
+        """Refs repeating every G*T positions: a bin sees the same value in
+        every super-tile, so every piece boundary of the plan cuts ties."""
+        return torch.randn(G * T, d, generator=gen).cuda().repeat(
+            -(-E // (G * T)), 1)[:E].contiguous()
+
     def split(r, ndev):
         """ndev equal tiles, the last padded with 1e30 rows."""
         E_loc = -(-r.shape[0] // ndev)
         pad = torch.full((E_loc * ndev - r.shape[0], r.shape[1]), 1e30,
                          device=r.device)
         return list(torch.cat([r, pad]).chunk(ndev))
+
+    def plan(S, d, G, n_super):
+        """The kernel's fold plan for a hop: units, blocks, pieces."""
+        qb, _, units, n_blocks = bf.fold_plan(
+            S, G, n_super, n_sm, d,
+            rb._blocks_per_sm(torch.device("cuda", 0), d))
+        pieces = sum(1 for _, _, s0, s1 in bf.fold_runs(units, n_blocks,
+                                                        n_super)
+                     if (s0, s1) != (0, n_super))
+        return dict(qb=qb, units=units, blocks=n_blocks, pieces=pieces)
 
     worst = 0.0
 
@@ -659,10 +688,35 @@ def phase_kernel_k3(rb, fp32_instr_per_s):
         return (torch.cat([v for v, _ in parts]),
                 torch.cat([ix for _, ix in parts]))
 
-    def hop(name, q, tiles, rank, h):
-        """Rank ``rank``'s hop ``h``; its carry is folded by the plain
-        version over the ranks before it on the same shard."""
+    def check(name, qs, tile, carry, offset, T, G, n_super, in_place=False,
+              **fields):
+        """One hop by the kernel (in place on a copy of the carry, or into
+        new bins) against the plain version: bins and ids bit-equal."""
         nonlocal worst
+        out = None
+        if in_place:
+            out = (carry[0].clone(), carry[1].clone())
+        kv, ki = rb.ring_fold_cuda(qs, tile, out if in_place else carry,
+                                   offset, T, G, n_super, out=out)
+        torch.cuda.synchronize()
+        pv, pi = plain(qs, tile, carry, offset, T, G, n_super)
+        equal = bool(torch.equal(kv, pv) and torch.equal(ki, pi))
+        err = float((kv - pv).abs().max())
+        worst = max(worst, err)
+        emit("kernel_check", kernel="ring_binfold", case=name,
+             S_loc=qs.shape[0], E_loc=tile.shape[0], d=qs.shape[1], T=T, G=G,
+             n_super=n_super, offset=offset, carry=carry is not None,
+             in_place=in_place, **fields,
+             **plan(qs.shape[0], qs.shape[1], G, n_super),
+             bit_equal=equal, max_abs_err=err)
+        if not equal:
+            raise AssertionError(f"ring kernel disagrees with plain: {name}")
+        return kv, ki
+
+    def hop(name, q, tiles, rank, h, in_place=False):
+        """Rank ``rank``'s hop ``h``; its carry is folded by the plain
+        version over the ranks before it on the same shard. Returns the
+        kernel's bins, the carry and R_pad."""
         ndev = len(tiles)
         T, G, n_super, R_pad, S_pad, S_loc, _ = rb._geometry(
             tiles[0].shape[0], q.shape[0], ndev, k, 0.95)
@@ -672,21 +726,10 @@ def phase_kernel_k3(rb, fp32_instr_per_s):
         for j in range(h):
             r = (s + j) % ndev
             carry = plain(qs, tiles[r], carry, r * R_pad, T, G, n_super)
-        kv, ki = rb.ring_fold_cuda(qs, tiles[rank], carry, rank * R_pad, T,
-                                   G, n_super)
-        torch.cuda.synchronize()
-        pv, pi = plain(qs, tiles[rank], carry, rank * R_pad, T, G, n_super)
-        equal = bool(torch.equal(kv, pv) and torch.equal(ki, pi))
-        err = float((kv - pv).abs().max())
-        worst = max(worst, err)
-        emit("kernel_check", kernel="ring_binfold", case=name, ranks=ndev,
-             rank=rank, hop=h, shard=s, S=q.shape[0], S_loc=S_loc,
-             E_loc=tiles[0].shape[0], d=q.shape[1], T=T, G=G,
-             n_super=n_super, R_pad=R_pad, carry=carry is not None,
-             bit_equal=equal, max_abs_err=err)
-        if not equal:
-            raise AssertionError(f"ring kernel disagrees with plain: {name}")
-        return kv, ki, R_pad
+        kv, ki = check(name, qs, tiles[rank], carry, rank * R_pad, T, G,
+                       n_super, in_place=in_place, ranks=ndev, rank=rank,
+                       hop=h, shard=s, S=q.shape[0], R_pad=R_pad)
+        return kv, ki, carry, R_pad
 
     q512 = torch.randn(512, 3, generator=gen).cuda()
     hop("100k_1rank_512q", q512, [refs_of(800_000, 3)], 0, 0)
@@ -695,7 +738,7 @@ def phase_kernel_k3(rb, fp32_instr_per_s):
     t4 = split(r1m, 4)
     hop("1m_4ranks_hop0", q512, t4, 1, 0)
     hop("1m_4ranks_hop1", q512, t4, 2, 1)
-    hop("1m_4ranks_hop3", q512, t4, 0, 3)
+    hop("1m_4ranks_hop3", q512, t4, 0, 3, in_place=True)
     t8 = split(r1m, 8)
     hop("1m_8ranks_hop0", q512, t8, 3, 0)
     hop("1m_8ranks_hop5", q512, t8, 6, 5)
@@ -709,9 +752,41 @@ def phase_kernel_k3(rb, fp32_instr_per_s):
         hop(f"ragged_s500_d{d}_hop2", q500, tr, 1, 2)
     a = refs_of(50_000, 3)
     qd = torch.randn(256, 3, generator=gen).cuda()
-    kv, ki, R_pad = hop("duplicate_tiles_hop1", qd, [a, a.clone()], 1, 1)
+    kv, ki, _, R_pad = hop("duplicate_tiles_hop1", qd, [a, a.clone()], 1, 1)
     if bool(((ki >= R_pad) & (kv < 3.0e38)).any()):
         raise AssertionError("ring kernel: a tie did not keep the carry")
+    # fewer units than resident blocks; d=1 and d=8 (8 queries a thread)
+    hop("fewer_units_than_blocks_d2", torch.randn(7, 2, generator=gen).cuda(),
+        split(refs_of(2 * 9001, 2), 2), 1, 1)
+    hop("d1_hop1", torch.randn(512, 1, generator=gen).cuda(),
+        split(refs_of(2 * 300_001, 1), 2), 0, 1, in_place=True)
+    hop("d8_hop1", torch.randn(200, 8, generator=gen).cuda(),
+        split(refs_of(2 * 100_000, 8), 2), 1, 1)
+    # ties across every piece boundary and against the carry: every rank
+    # holds the same periodic tile, so the carry (the first rank folded)
+    # must win every bin, with the p of its first super-tile
+    for name, q, E_loc, ndev, rank, h in (
+            ("ties_pieces_and_carry_1m_64q", torch.randn(
+                128, 3, generator=gen).cuda(), refs_1m, 2, 1, 1),
+            ("ties_pieces_and_carry_4ranks_hop3", q512, 1_424_936, 4, 2, 3)):
+        T, G, _, _, _, _, _ = rb._geometry(E_loc, q.shape[0], ndev, k, 0.95)
+        tile = periodic(E_loc, 3, T, G)
+        kv, ki, carry, R_pad = hop(name, q, [tile] * ndev, rank, h,
+                                   in_place=True)
+        first = (rank - h) % ndev * R_pad  # the shard's first rank's ids
+        kept = kv < 3.0e38
+        if not (torch.equal(kv, carry[0]) and torch.equal(ki, carry[1])
+                and bool(((ki[kept] >= first)
+                          & (ki[kept] < first + G * T)).all())):
+            raise AssertionError(f"ring kernel: {name} did not keep the "
+                                 "carry's first super-tile")
+        del tile
+
+    T, G, n_super, R_pad, _, S_loc, _ = rb._geometry(refs_1m, 512, 1, k, 0.95)
+    # in place on a carry at the one-rank 1M shape (S_loc=512)
+    carry = plain(q512, refs_of(refs_1m, 3), None, 0, T, G, n_super)
+    check("in_place_1m_512q", q512, r1m, carry, R_pad, T, G, n_super,
+          in_place=True, R_pad=R_pad)
 
     for name, q, tiles in (("1m_4ranks", q512, t4),
                            ("s500_8ranks", torch.randn(
@@ -729,34 +804,65 @@ def phase_kernel_k3(rb, fp32_instr_per_s):
                  torch.equal(kv, pv)), sets_equal=sets)
         if not equal:
             raise AssertionError(f"virtual ring disagrees with plain: {name}")
-    del t4
 
-    S, d = 512, 3
-    T, G, n_super, R_pad, _, S_loc, _ = rb._geometry(refs_1m, S, 1, k, 0.95)
-    ring_ms = cuda_ms(lambda: rb.ring_fold_cuda(q512, r1m, None, 0, T, G,
-                                                n_super))
-    b2b = back_to_back_ms(lambda: rb.ring_fold_cuda(q512, r1m, None, 0, T, G,
-                                                    n_super))
-    kernel64_ms = cuda_ms(lambda: rb.ring_fold_cuda(q64, r1m, None, 0, T, G,
-                                                    n_super))
-    plain64_ms = cuda_ms(lambda: rb.ring_fold_reference(q64, r1m, None, 0, T,
-                                                        G, n_super),
-                         reps=3, warmup=1)
-    # K1's fold per pair (3d + 2, as in phase 3); the carry merge is per bin
-    ops = (3 * d + 2) * S_loc * R_pad
-    nbytes = 4 * (S_loc * d + R_pad * d) + 16 * S_loc * G * 128
-    ops_ms = ops / fp32_instr_per_s * 1e3
-    bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    emit("kernel_time", name="ring_binfold", S_loc=S_loc, R_pad=R_pad,
-         E_loc=refs_1m, d=d, G=G, n_super=n_super, kernel_ms=ring_ms,
-         back_to_back_ms=b2b,
-         kernel_ms_64q=kernel64_ms, plain_ms_64q=plain64_ms, ops=ops,
-         bytes=nbytes, ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms)
-    return {
-        "max_abs_err": worst, "ms": ring_ms, "back_to_back_ms": b2b,
-        "plain_ms": plain64_ms, "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-    }
+    ptx = ptxas_lines(build_report, "ring_binfold", "ring_fold_kernelILi3E")
+    emit("kernel_ptxas", name="ring_binfold", d=3, ptxas=ptx)
+    if not ptx or spills(ptx):
+        raise AssertionError(f"ring kernel at d=3: {ptx}")
+
+    # times: the one-rank 1M shape, 64 queries against the same refs, and
+    # the four-card tile with a carry, merged in place as the ring does
+    T4, G4, n_super4, R_pad4, _, _, _ = rb._geometry(t4[3].shape[0], 512, 4,
+                                                     k, 0.95)
+    q128 = q512[:128]
+    carry4 = plain(q128, t4[2], None, 2 * R_pad4, T4, G4, n_super4)
+    shapes = (
+        ("1m_1rank_512q", q512, r1m, None, 0, T, G, n_super),
+        ("1m_1rank_64q", q64, r1m, None, 0, T, G, n_super),
+        ("4card_tile_carry", q128, t4[3], carry4, 3 * R_pad4, T4, G4,
+         n_super4),
+    )
+    out = {"max_abs_err": worst}
+    for label, qs, tile, carry, offset, T_, G_, ns_ in shapes:
+        S_, d = qs.shape
+        scratch = rb.ring_fold_scratch(S_, d, G_, ns_, qs.device)
+
+        def fold(scratch=scratch):
+            return rb.ring_fold_cuda(qs, tile, carry, offset, T_, G_, ns_,
+                                     out=carry, scratch=scratch)
+
+        ms = cuda_ms(fold)
+        b2b = back_to_back_ms(fold)
+        # a hop that allocates its own scratch, as a lone ring_fold does
+        ms_own = cuda_ms(lambda: fold(None))
+        b2b_own = back_to_back_ms(lambda: fold(None))
+        plain_ms = cuda_ms(
+            lambda: plain(qs, tile, carry, offset, T_, G_, ns_), reps=3,
+            warmup=1)
+        R = ns_ * G_ * T_
+        # K1's fold per pair (3d + 2, as in phase 3); the carry merge is per
+        # bin. Bytes: queries, refs, bins out, and the carry in
+        ops = (3 * d + 2) * S_ * R
+        nbytes = (4 * (S_ * d + tile.shape[0] * d)
+                  + 8 * S_ * G_ * 128 * (1 if carry is None else 2))
+        ops_ms = ops / fp32_instr_per_s * 1e3
+        bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        emit("kernel_time", name="ring_binfold", shape=label, S_loc=S_,
+             E_loc=tile.shape[0], R_pad=R, d=d, G=G_, n_super=ns_,
+             offset=offset, carry=carry is not None, **plan(S_, d, G_, ns_),
+             kernel_ms=ms, back_to_back_ms=b2b, kernel_ms_own_scratch=ms_own,
+             back_to_back_ms_own_scratch=b2b_own, plain_ms=plain_ms,
+             ops=ops, bytes=nbytes,
+             ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
+             share_of_bound=bound / ms, share_of_bound_back_to_back=bound / b2b)
+        if label == "1m_1rank_512q":
+            out.update(ms=ms, back_to_back_ms=b2b, plain_ms=plain_ms,
+                       bound_ms=bound,
+                       bound_by="operations" if ops_ms >= bytes_ms
+                       else "bytes")
+    del t4
+    return out
 
 
 def phase_sharded(grt, bf, rb, label, adj, init, warmup, profile,
@@ -1067,7 +1173,7 @@ def main(argv):
 
     k1 = phase_kernel(bf, fp32_instr_per_s, report)
     k2 = phase_kernel_k2(kp, knn_exact, fp32_instr_per_s, report)
-    k3 = phase_kernel_k3(rb, fp32_instr_per_s)
+    k3 = phase_kernel_k3(rb, bf, fp32_instr_per_s, report)
     adj100k, adj1m = regular_union_graph(100_000), ring_chords_graph()
     launches = phase_main(grt, bf, "random_8_regular_100k", adj100k, "flat",
                           "auto", warmup=10, profile=profile)

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/graphem_rapids_torch/`` beside the
-package, at first use. The library file name carries a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is loaded
-as it is. Libraries are loaded with ``ctypes``; the caller declares the
+package, at first use. The library file name carries a hash of the source,
+of every header ``csrc/*.cuh`` (which the sources include) and of the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is. Libraries are loaded with ``ctypes``; the caller declares the
 argument types of the entry points it calls.
 
 Nothing here runs when the package is imported: the CPU-only test
@@ -54,8 +55,12 @@ def source_path(name):
 
 
 def library_path(name):
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives: its name
+    hashes the source, the headers of ``csrc/`` and the flags."""
     h = hashlib.sha256(source_path(name).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -24,8 +24,8 @@
 // against 800,000 refs (E_pad 835,584), 0.141 ms, and 3.21e10 at 5,699,741
 // refs, 0.960 ms, at 132 SMs x 128 lanes x 1980 MHz. The bytes (refs once,
 // queries, the (S, G*128) bins) are 10-80 MB, a quarter of that time or
-// less, so issue slots are the limit. The loop below issues those 11 per
-// pair plus a load and the loop step per chunk.
+// less, so issue slots are the limit. The sweep (fold_plan.cuh) issues
+// those 11 per pair plus a load and the loop step per chunk.
 //
 // What held the first design back: a grid of (G, ceil(S / 16)) blocks of
 // 128 threads, each sweeping all n_super super-tiles of its bin group for
@@ -36,71 +36,18 @@
 // back to back at S=416 (624 blocks, one wave) the 1M shape took 52% of
 // the S=512 time, not 81% (PERF.md).
 //
-// Design. The work is U = G * ceil(S / QB) * n_super units: (bin group g,
-// query block, super-tile s), each QB queries against the T refs of one
-// tile. The grid is exactly the resident block count nb (the wrapper's
-// `fold_plan`, from the occupancy the card reports), and block b walks the
-// units [b * U / nb, (b + 1) * U / nb) in order (g, query block, s), so
-// every block gets the same work to within one unit and the card runs one
-// wave. A block's range cuts the run of a (g, query block) over its
-// super-tiles into at most three kinds of run: whole (written straight to
-// the outputs), or a piece at the start or end of its range. A piece
-// writes its (value, index) pairs to the block's slot in a scratch buffer;
-// the block that completes a segment's super-tiles (an atomicAdd on the
-// segment's count) folds the pieces. Within a bin the visit order is
-// ascending p, so the first strict minimum is the lexicographic minimum
-// of (value, p), and the pieces are folded as 64-bit keys
-// (bits(value) << 32) | p, which order as (value, p) because the values
-// are >= +0 and their IEEE bits order as unsigned integers; a piece that
-// took nothing holds (3.0e38, 0), whose key is below every (3.0e38, p > 0)
-// and above every real value. In the sweep a thread keeps QB queries and
-// their QB (value, index) pairs in registers (QB = 16 at d <= 3, else 8;
-// up to 128 registers, 4 blocks of 128 threads per SM), and loads the next
-// chunk's ref while it folds the current one.
+// Design: the plan of fold_plan.cuh, shared with the ring hop (K3). The
+// grid is exactly the resident block count, each block walks an equal
+// range of (bin group, query block, super-tile) units, a whole run writes
+// the bins directly, and the pieces of a cut run are folded as 64-bit
+// (value, p) keys by the block that completes their segment. This file
+// instantiates it with the plain epilogue (the ring flag off).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fold_plan.cuh"
+
+using namespace graphem_fold;
 
 namespace {
-
-constexpr int kLanes = 128;
-constexpr float kBig = 3.0e38f;
-constexpr float kPadCoord = 1.0e15f;
-
-template <int DIM>
-struct Fold {
-  static constexpr int QB = DIM <= 3 ? 16 : 8;  // queries per thread
-  static constexpr int kMinBlocks = 4;  // 128 registers a thread
-};
-
-// First unit of block b's range.
-__device__ __forceinline__ long long range_start(long long b, long long U,
-                                                 long long nb) {
-  return b * U / nb;
-}
-
-// The block whose range holds unit u.
-__device__ __forceinline__ long long block_of(long long u, long long U,
-                                              long long nb) {
-  return ((u + 1) * nb - 1) / U;
-}
-
-__device__ __forceinline__ unsigned long long pack_key(float v, int32_t p) {
-  return (static_cast<unsigned long long>(__float_as_uint(v)) << 32) |
-         static_cast<unsigned int>(p);
-}
-
-template <int DIM>
-__device__ __forceinline__ void load_ref(const float* __restrict__ refs, int p,
-                                         int E, float (&r)[DIM]) {
-  if ((unsigned)p < (unsigned)E) {  // a p past 2^31 - 1 wraps above E
-#pragma unroll
-    for (int c = 0; c < DIM; ++c) r[c] = __ldg(refs + (long long)p * DIM + c);
-  } else {
-#pragma unroll
-    for (int c = 0; c < DIM; ++c) r[c] = kPadCoord;
-  }
-}
 
 template <int DIM>
 __global__ void __launch_bounds__(kLanes, Fold<DIM>::kMinBlocks)
@@ -109,130 +56,9 @@ binfold_kernel(const float* __restrict__ queries, const float* __restrict__ refs
                float* __restrict__ part_v, int32_t* __restrict__ part_i,
                int* __restrict__ seg_done, int S, int E, int T, int G,
                int n_super, int n_qblk, int nb) {
-  constexpr int QB = Fold<DIM>::QB;
-  __shared__ int last_piece;
-  const int lane = threadIdx.x;
-  const int b = blockIdx.x;
-  const long long U = (long long)G * n_qblk * n_super;
-  const long long u0 = range_start(b, U, nb);
-  const long long u1 = range_start(b + 1, U, nb);
-  const int chunks = T / kLanes;
-  const long long n_bins = (long long)G * kLanes;
-
-  long long u = u0;
-  while (u < u1) {
-    const long long seg = u / n_super;
-    const int s0 = (int)(u - seg * n_super);
-    const int s1 = (int)min((long long)n_super, s0 + (u1 - u));
-    const int g = (int)(seg / n_qblk);
-    const int q0 = (int)(seg % n_qblk) * QB;
-    const long long bin = (long long)g * kLanes + lane;
-
-    float q[QB][DIM];
-#pragma unroll
-    for (int j = 0; j < QB; ++j) {
-#pragma unroll
-      for (int c = 0; c < DIM; ++c) {
-        q[j][c] = q0 + j < S ? queries[(long long)(q0 + j) * DIM + c] : 0.0f;
-      }
-    }
-    float v[QB];
-    int32_t ix[QB];
-#pragma unroll
-    for (int j = 0; j < QB; ++j) {
-      v[j] = kBig;
-      ix[j] = 0;
-    }
-
-    // p walks the tiles (s * G + g) * T of the run, 128 lanes per chunk
-    const int skip = (G - 1) * T;  // from a tile's end to the next tile
-    int p = (s0 * G + g) * T + lane;
-    float r[DIM];
-    load_ref<DIM>(refs, p, E, r);
-    const int steps = (s1 - s0) * chunks;
-    for (int t = 0, c = 0; t < steps; ++t) {
-      int pn = p + kLanes;
-      if (++c == chunks) {
-        c = 0;
-        pn += skip;
-      }
-      float rn[DIM];
-      load_ref<DIM>(refs, pn, E, rn);  // past the run: read, never used
-#pragma unroll
-      for (int j = 0; j < QB; ++j) {
-        float diff = __fsub_rn(q[j][0], r[0]);
-        float d = __fmul_rn(diff, diff);
-#pragma unroll
-        for (int k = 1; k < DIM; ++k) {
-          diff = __fsub_rn(q[j][k], r[k]);
-          d = __fadd_rn(d, __fmul_rn(diff, diff));
-        }
-        if (d < v[j]) {
-          v[j] = d;
-          ix[j] = p;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < DIM; ++k) r[k] = rn[k];
-      p = pn;
-    }
-
-    if (s0 == 0 && s1 == n_super) {  // the whole segment: the bins' answer
-#pragma unroll
-      for (int j = 0; j < QB; ++j) {
-        if (q0 + j < S) {
-          out_vals[(q0 + j) * n_bins + bin] = v[j];
-          out_idx[(q0 + j) * n_bins + bin] = ix[j];
-        }
-      }
-    } else {
-      // a piece: slot 0 for the run at the start of the range, 1 at its end
-      const long long slot = ((long long)b * 2 + (u == u0 ? 0 : 1)) * QB;
-#pragma unroll
-      for (int j = 0; j < QB; ++j) {
-        part_v[(slot + j) * kLanes + lane] = v[j];
-        part_i[(slot + j) * kLanes + lane] = ix[j];
-      }
-      __threadfence();
-      __syncthreads();
-      if (lane == 0) {
-        const int add = s1 - s0;
-        last_piece = atomicAdd(seg_done + seg, add) + add == n_super;
-      }
-      __syncthreads();
-      if (last_piece) {  // every piece of the segment is written: fold them
-        __threadfence();
-        const long long lo = seg * n_super;
-        const long long pb0 = block_of(lo, U, nb);
-        const long long pb1 = block_of(lo + n_super - 1, U, nb);
-        unsigned long long key[QB];
-#pragma unroll
-        for (int j = 0; j < QB; ++j) key[j] = pack_key(kBig, 0);
-        for (long long pb = pb0; pb <= pb1; ++pb) {
-          // the segment is pb's first run unless pb's range began before it
-          const long long ps =
-              (pb * 2 + (pb == pb0 && range_start(pb, U, nb) != lo ? 1 : 0)) *
-              QB;
-#pragma unroll
-          for (int j = 0; j < QB; ++j) {
-            const unsigned long long kk =
-                pack_key(__ldcg(part_v + (ps + j) * kLanes + lane),
-                         __ldcg(part_i + (ps + j) * kLanes + lane));
-            key[j] = kk < key[j] ? kk : key[j];
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < QB; ++j) {
-          if (q0 + j < S) {
-            out_vals[(q0 + j) * n_bins + bin] =
-                __uint_as_float((unsigned int)(key[j] >> 32));
-            out_idx[(q0 + j) * n_bins + bin] = (int32_t)(key[j] & 0xffffffffu);
-          }
-        }
-      }
-    }
-    u += s1 - s0;
-  }
+  fold_units<DIM, false>(queries, refs, nullptr, nullptr, out_vals, out_idx,
+                         part_v, part_i, seg_done, S, E, T, G, n_super,
+                         n_qblk, nb, 0);
 }
 
 template <int DIM>
@@ -240,9 +66,8 @@ int launch(const float* q, const float* refs, float* out_vals, int32_t* out_idx,
            float* part_v, int32_t* part_i, int* seg_done, int S, int E, int T,
            int G, int n_super, int nb, cudaStream_t stream) {
   const int n_qblk = (S + Fold<DIM>::QB - 1) / Fold<DIM>::QB;
-  const cudaError_t err = cudaMemsetAsync(
-      seg_done, 0, sizeof(int) * (size_t)G * n_qblk, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = zero_segments(seg_done, G, n_qblk, stream);
+  if (err != 0) return err;
   binfold_kernel<DIM><<<nb, kLanes, 0, stream>>>(
       q, refs, out_vals, out_idx, part_v, part_i, seg_done, S, E, T, G,
       n_super, n_qblk, nb);
@@ -251,10 +76,7 @@ int launch(const float* q, const float* refs, float* out_vals, int32_t* out_idx,
 
 template <int DIM>
 int occupancy() {
-  int n = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, binfold_kernel<DIM>, kLanes, 0);
-  return err == cudaSuccess ? n : -static_cast<int>(err);
+  return blocks_per_sm(binfold_kernel<DIM>);
 }
 
 }  // namespace

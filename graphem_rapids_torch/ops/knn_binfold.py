@@ -208,19 +208,41 @@ def _kernel_fn():
 _occupancy = {}
 
 
-def _blocks_per_sm(device, dim):
-    """Resident blocks per SM of the kernel for ``dim``, as the card
-    reports."""
-    if (device, dim) not in _occupancy:
-        fn = _build.load("binfold").graphem_binfold_blocks_per_sm
+def kernel_blocks_per_sm(lib, entry, device, dim):
+    """Resident blocks per SM of a fold kernel for ``dim``, as the card
+    reports through the library's occupancy entry ``entry``."""
+    key = (lib, device, dim)
+    if key not in _occupancy:
+        fn = getattr(_build.load(lib), entry)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int]
         with torch.cuda.device(device):
             n = fn(dim)
         if n < 1:
-            raise RuntimeError(f"binfold occupancy query failed: {n}")
-        _occupancy[(device, dim)] = n
-    return _occupancy[(device, dim)]
+            raise RuntimeError(f"{lib} occupancy query failed: {n}")
+        _occupancy[key] = n
+    return _occupancy[key]
+
+
+def _blocks_per_sm(device, dim):
+    """Resident blocks per SM of the bin-fold kernel for ``dim``."""
+    return kernel_blocks_per_sm("binfold", "graphem_binfold_blocks_per_sm",
+                                device, dim)
+
+
+def fold_scratch(S, dim, G, n_super, device, blocks_per_sm):
+    """(n_blocks, part_v, part_i, seg_done): the grid of the fold's plan
+    on ``device`` and its scratch, the pieces' (n_blocks, 2, qb, 128)
+    values and indices and the (G * n_qblk,) segment counts (zeroed by
+    each launch)."""
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    qb, n_qblk, _, n_blocks = fold_plan(S, G, n_super, sm_count, dim,
+                                        blocks_per_sm)
+    shape = (n_blocks, 2, qb, _LANES)
+    return (n_blocks,
+            torch.empty(shape, dtype=torch.float32, device=device),
+            torch.empty(shape, dtype=torch.int32, device=device),
+            torch.empty((G * n_qblk,), dtype=torch.int32, device=device))
 
 
 def binfold_bins_cuda(queries, refs, T, G, n_super):
@@ -246,14 +268,8 @@ def binfold_bins_cuda(queries, refs, T, G, n_super):
     out_idx = torch.empty((S, G * _LANES), dtype=torch.int32, device=dev)
     if S == 0:
         return out_vals, out_idx
-    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    qb, n_qblk, _, n_blocks = fold_plan(S, G, n_super, sm_count, dim,
-                                        _blocks_per_sm(dev, dim))
-    part_v = torch.empty((n_blocks, 2, qb, _LANES), dtype=torch.float32,
-                         device=dev)
-    part_i = torch.empty((n_blocks, 2, qb, _LANES), dtype=torch.int32,
-                         device=dev)
-    seg_done = torch.empty((G * n_qblk,), dtype=torch.int32, device=dev)
+    n_blocks, part_v, part_i, seg_done = fold_scratch(
+        S, dim, G, n_super, dev, _blocks_per_sm(dev, dim))
     fn = _kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

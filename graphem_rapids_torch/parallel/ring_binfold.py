@@ -13,15 +13,23 @@ reorder give every rank the same (S, kk) neighbour set.
 
 Each hop is one launch of the CUDA kernel ``csrc/ring_binfold.cu``
 (``ring_fold_cuda``): the fold of the local tile and the min-merge with the
-incoming carry, where the carry wins ties. The carry travels between
+incoming carry, where the carry wins ties. The fold runs the bin fold's
+work plan (``csrc/fold_plan.cuh``, shared with K1): a grid of the resident
+block count, each block an equal range of (bin group, query block,
+super-tile) units, pieces of a cut run folded by the block that completes
+their segment, whose thread of a bin then merges the carry there. The plan's
+scratch is allocated once per ring call (``ring_fold_scratch``) and reused
+by every hop, which run in order on one stream. The carry travels between
 launches by one ``batch_isend_irecv`` per hop (NCCL point-to-point on the
-card, gloo in the CPU tests) into the other slot of a double buffer. The
-TPU kernel overlapped that transfer with the next hop's fold by in-kernel
-remote copies; here the fold waits for the transfer, and overlapping them
-is later work.
+card, gloo in the CPU tests) into the other slot of a double buffer; from
+the second hop on each hop merges in place. The TPU kernel overlapped that
+transfer with the next hop's fold by in-kernel remote copies; here the
+fold waits for the transfer, and overlapping them is later work.
 
 ``ring_fold_reference`` is the plain PyTorch version of one hop; ``ring_fold``
 runs it for CPU tensors and launches the kernel for CUDA tensors.
+``ring_fold_pieces_reference`` is the plain model of the kernel's plan
+(the hop from the plan's pieces), for the CPU tests.
 ``ring_binfold_topk_virtual`` runs the same hops for ndev tiles held in one
 process, handing the carry over in memory: the plain counterpart of the
 whole ring, with which the tests and the smoke run hold the ring.
@@ -38,6 +46,9 @@ from ..ops.knn_binfold import (
     _PAD_COORD,
     MAX_DIM,
     binfold_bins_reference,
+    binfold_pieces_reference,
+    fold_scratch,
+    kernel_blocks_per_sm,
     params_for,
 )
 
@@ -47,7 +58,9 @@ __all__ = [
     "ring_binfold_topk_virtual",
     "ring_fold",
     "ring_fold_cuda",
+    "ring_fold_pieces_reference",
     "ring_fold_reference",
+    "ring_fold_scratch",
     "ring_supported",
 ]
 
@@ -103,6 +116,17 @@ def ring_supported(E_loc, S, ndev, k, recall_target=0.95):
         return False
 
 
+def _merge(vals, idx, carry, offset):
+    """The hop's epilogue on folded bins (vals, local p): ids offset + p
+    where the value is below 3.0e38 (0 elsewhere), then the carry kept
+    unless the bin is strictly below it."""
+    idx = torch.where(vals < _BIG, idx + int(offset), torch.zeros_like(idx))
+    if carry is None:
+        return vals, idx
+    take = vals < carry[0]
+    return torch.where(take, vals, carry[0]), torch.where(take, idx, carry[1])
+
+
 def ring_fold_reference(q_shard, refs, carry, offset, T, G, n_super):
     """Plain PyTorch hop: (vals (S, G*128) f32, ids (S, G*128) int32).
 
@@ -112,11 +136,18 @@ def ring_fold_reference(q_shard, refs, carry, offset, T, G, n_super):
     below the carry. ``carry=None`` merges with (3.0e38, 0).
     """
     vals, idx = binfold_bins_reference(q_shard, refs, T, G, n_super)
-    idx = torch.where(vals < _BIG, idx + int(offset), torch.zeros_like(idx))
-    if carry is None:
-        return vals, idx
-    take = vals < carry[0]
-    return torch.where(take, vals, carry[0]), torch.where(take, idx, carry[1])
+    return _merge(vals, idx, carry, offset)
+
+
+def ring_fold_pieces_reference(q_shard, refs, carry, offset, T, G, n_super,
+                               n_blocks):
+    """Plain model of the kernel's plan for one hop, on a grid of
+    ``n_blocks`` blocks: the bins from the plan's pieces
+    (binfold_pieces_reference, keys on the local p), then the epilogue of
+    ring_fold_reference. Equal to ring_fold_reference bit for bit."""
+    vals, idx = binfold_pieces_reference(q_shard, refs, T, G, n_super,
+                                         n_blocks)
+    return _merge(vals, idx, carry, offset)
 
 
 def _kernel_fn():
@@ -124,11 +155,28 @@ def _kernel_fn():
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
     ]
     return fn
+
+
+def _blocks_per_sm(device, dim):
+    """Resident blocks per SM of the ring kernel for ``dim``."""
+    return kernel_blocks_per_sm("ring_binfold",
+                                "graphem_ring_fold_blocks_per_sm", device, dim)
+
+
+def ring_fold_scratch(S, dim, G, n_super, device):
+    """The plan's grid and scratch for hops of S queries of ``dim``
+    coordinates on ``device``: ((S, dim, G, n_super, device), then
+    ``fold_scratch``'s tuple with the ring kernel's occupancy). One scratch
+    serves every hop of a ring call, as long as the hops run in order on
+    one stream."""
+    return ((S, dim, G, n_super, device),) + fold_scratch(
+        S, dim, G, n_super, device, _blocks_per_sm(device, dim))
 
 
 def _check_bins(name, t, dtype, shape, device):
@@ -140,10 +188,12 @@ def _check_bins(name, t, dtype, shape, device):
         )
 
 
-def ring_fold_cuda(q_shard, refs, carry, offset, T, G, n_super, out=None):
+def ring_fold_cuda(q_shard, refs, carry, offset, T, G, n_super, out=None,
+                   scratch=None):
     """Launch one hop of the CUDA ring kernel; same result as
     ring_fold_reference. ``out`` = (vals, ids) receives the result and may
-    be ``carry`` itself (the merge then runs in place)."""
+    be ``carry`` itself (the merge then runs in place). ``scratch`` is
+    ``ring_fold_scratch``'s for this shape, or None to allocate it here."""
     S, dim = q_shard.shape
     E = refs.shape[0]
     dev = q_shard.device
@@ -157,6 +207,8 @@ def ring_fold_cuda(q_shard, refs, carry, offset, T, G, n_super, out=None):
         raise ValueError(f"T must be a multiple of {_LANES}, got {T}")
     if offset < 0 or offset + n_super * G * T >= 2**31:
         raise ValueError("ring kernel ids are int32: offset + R_pad too large")
+    if E > n_super * G * T:
+        raise ValueError(f"{E} refs exceed the {n_super} x {G} x {T} tiles")
     shape = (S, G * _LANES)
     if carry is not None:
         _check_bins("carry values", carry[0], torch.float32, shape, dev)
@@ -166,6 +218,14 @@ def ring_fold_cuda(q_shard, refs, carry, offset, T, G, n_super, out=None):
                torch.empty(shape, dtype=torch.int32, device=dev))
     _check_bins("out values", out[0], torch.float32, shape, dev)
     _check_bins("out ids", out[1], torch.int32, shape, dev)
+    if S == 0:
+        return out
+    if scratch is None:
+        scratch = ring_fold_scratch(S, dim, G, n_super, dev)
+    made_for, n_blocks, part_v, part_i, seg_done = scratch
+    if made_for != (S, dim, G, n_super, dev):
+        raise ValueError(f"scratch made for (S, dim, G, n_super, device) = "
+                         f"{made_for}, the hop is {(S, dim, G, n_super, dev)}")
     q_shard = q_shard.contiguous()
     refs = refs.contiguous()
     cv = carry[0].data_ptr() if carry is not None else None
@@ -175,19 +235,22 @@ def ring_fold_cuda(q_shard, refs, carry, offset, T, G, n_super, out=None):
         stream = torch.cuda.current_stream().cuda_stream
         ring_fold.launches += 1
         rc = fn(q_shard.data_ptr(), refs.data_ptr(), cv, ci,
-                out[0].data_ptr(), out[1].data_ptr(), S, E, dim, T, G,
-                n_super, int(offset), stream)
+                out[0].data_ptr(), out[1].data_ptr(), part_v.data_ptr(),
+                part_i.data_ptr(), seg_done.data_ptr(), S, E, dim, T, G,
+                n_super, int(offset), n_blocks, stream)
     if rc != 0:
         raise RuntimeError(f"ring_binfold kernel launch failed: CUDA error {rc}")
     return out
 
 
-def ring_fold(q_shard, refs, carry, offset, T, G, n_super, out=None):
+def ring_fold(q_shard, refs, carry, offset, T, G, n_super, out=None,
+              scratch=None):
     """One ring hop: the kernel for CUDA tensors, the plain version for CPU
-    tensors. ``ring_fold.launches`` counts kernel launches on the card."""
+    tensors (which needs no ``scratch``). ``ring_fold.launches`` counts
+    kernel launches on the card."""
     if q_shard.is_cuda:
         return ring_fold_cuda(q_shard, refs, carry, offset, T, G, n_super,
-                              out=out)
+                              out=out, scratch=scratch)
     vals, idx = ring_fold_reference(q_shard, refs, carry, offset, T, G,
                                     n_super)
     if out is None:
@@ -241,6 +304,8 @@ def ring_binfold_topk(q_mid, mid_loc, kk, *, mesh, recall_target=0.95):
     refs = mid_loc.to(torch.float32).contiguous()
     i = mesh.rank
     shape = (S_loc, G * _LANES)
+    scratch = (ring_fold_scratch(S_loc, q.shape[1], G, n_super, q.device)
+               if q.is_cuda else None)
     slots = [
         (torch.empty(shape, dtype=torch.float32, device=q.device),
          torch.empty(shape, dtype=torch.int32, device=q.device))
@@ -251,7 +316,7 @@ def ring_binfold_topk(q_mid, mid_loc, kk, *, mesh, recall_target=0.95):
         s = (i - h) % ndev
         slot = slots[h % 2]
         ring_fold(q[s * S_loc:(s + 1) * S_loc], refs, carry, i * R_pad, T, G,
-                  n_super, out=slot)
+                  n_super, out=slot, scratch=scratch)
         if h < ndev - 1:
             # the merged carry goes right; the next shard's comes from the
             # left into the other slot, whose previous send was waited on
@@ -278,10 +343,11 @@ def ring_binfold_topk_virtual(q, tiles, kk, recall_target=0.95, fold=None):
     ``tiles[r]`` is rank r's ref tile; all have the same length. Shard s
     meets the tiles in the ring's order, r = s, s+1, ..., through the same
     hops (ndev^2 of them), its carry handed over in memory. Each hop is
-    ``fold`` (default ``ring_fold``; ``ring_fold_reference`` runs the plain
-    version on any device). Returns (vals (S, kk), ids (S, kk) int32, R_pad).
+    ``fold(q_shard, tile, carry, offset, T, G, n_super)``: by default
+    ``ring_fold``, with one scratch for every hop on the card;
+    ``ring_fold_reference`` runs the plain version on any device. Returns
+    (vals (S, kk), ids (S, kk) int32, R_pad).
     """
-    fold = ring_fold if fold is None else fold
     ndev = len(tiles)
     E_loc = tiles[0].shape[0]
     if any(t.shape[0] != E_loc for t in tiles):
@@ -292,6 +358,12 @@ def ring_binfold_topk_virtual(q, tiles, kk, recall_target=0.95, fold=None):
     )
     qp = _padded_queries(q, S_pad)
     tiles = [t.to(torch.float32).contiguous() for t in tiles]
+    if fold is None:
+        scratch = (ring_fold_scratch(S_loc, qp.shape[1], G, n_super,
+                                     qp.device) if qp.is_cuda else None)
+
+        def fold(*hop):
+            return ring_fold(*hop, scratch=scratch)
     vals, idx = [], []
     for s in range(ndev):
         carry = None

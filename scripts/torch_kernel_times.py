@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's kNN kernels K1 (bin fold) and K2 (exact tiled kNN) of
-several checkouts in turns on one CUDA card.
+"""Time the port's kNN kernels K1 (bin fold), K2 (exact tiled kNN) and K3
+(ring bin-fold hop) of several checkouts in turns on one CUDA card.
 
     python3 scripts/torch_kernel_times.py --repo OLD --repo NEW \\
         --repo NEW --repo OLD
@@ -18,7 +18,12 @@ and ``back_to_back_ms``, CUDA events around 20 calls launched back to back
 K1 is timed at S=512 and S=416 queries (d=3, T=2048, G=24) against
 800,000 and 5,699,741 refs (the 100K and 1M graphs' fused refs; 1 in 40
 rows at the 1e30 pad). K2 is timed at S=512, d=3, k=16 against 399,984
-and 3,999,991 refs (the graphs' edge midpoints).
+and 3,999,991 refs (the graphs' edge midpoints). K3 (``ring_fold_cuda``,
+one hop, which makes its own scratch) is timed at the one-rank 1M shape
+(S_loc=512 against the same 5,699,741 refs, no carry), on 64 of those
+queries, and on the last of four tiles of those refs (the four-card tile,
+S_loc=128, E_loc=1,424,936, offset 3 * R_pad) merged in place into a
+carry folded from the third tile, as the ring's later hops do.
 """
 
 import argparse
@@ -36,7 +41,8 @@ from chip_smoke import back_to_back_ms, cuda_ms, nvidia_smi  # noqa: E402
 
 
 def _import_port(repo):
-    """graphem_rapids_torch's bin-fold and tiled-kNN modules from ``repo``."""
+    """graphem_rapids_torch's bin-fold, tiled-kNN and ring modules and its
+    builder, from ``repo``."""
     for name in list(sys.modules):
         if name == "graphem_rapids_torch" or name.startswith(
                 "graphem_rapids_torch."):
@@ -45,10 +51,13 @@ def _import_port(repo):
     try:
         bf = importlib.import_module("graphem_rapids_torch.ops.knn_binfold")
         kp = importlib.import_module("graphem_rapids_torch.ops.knn_pallas")
+        rb = importlib.import_module(
+            "graphem_rapids_torch.parallel.ring_binfold")
         build = importlib.import_module("graphem_rapids_torch._build")
     finally:
         sys.path.pop(0)
-    return bf, kp, build
+    return bf, kp, rb, build
+
 
 
 def _timed(fn, **fields):
@@ -74,8 +83,12 @@ def main(argv):
         k1_refs[label] = r.cuda()
     k2_refs = {label: torch.randn(E, 3, generator=gen).cuda()
                for label, E in (("100k", 399_984), ("1m", 3_999_991))}
+    r1m = k1_refs["1m"]
+    t4 = list(torch.cat([r1m, torch.full((3, 3), 1e30, device="cuda")])
+              .chunk(4))  # 1,424,936 refs each
+    carry4 = None
     for repo in args.repo or [ROOT]:
-        bf, kp, build = _import_port(repo)
+        bf, kp, rb, build = _import_port(repo)
         build.build(force=True)
         for label, r in k1_refs.items():
             G, n_super = bf._geometry(r.shape[0], 2048, 24)
@@ -88,6 +101,26 @@ def main(argv):
             _timed(lambda: kp.knn_tiled_cuda(q512, r, 16), repo=repo,
                    kernel="knn_pallas", shape=label, S=512, E=r.shape[0],
                    k=16)
+        T, G, n_super, R_pad, _, _, _ = rb._geometry(r1m.shape[0], 512, 1,
+                                                     16, 0.95)
+        T4, G4, n_super4, R_pad4, _, _, _ = rb._geometry(t4[3].shape[0],
+                                                         512, 4, 16, 0.95)
+        if carry4 is None:  # the plain fold, 64 rows at a time
+            parts = [rb.ring_fold_reference(q512[i:i + 64], t4[2], None,
+                                            2 * R_pad4, T4, G4, n_super4)
+                     for i in range(0, 128, 64)]
+            carry4 = tuple(torch.cat(c) for c in zip(*parts))
+        for label, q, r, c, offset, T_, G_, ns_ in (
+                ("1m_1rank_512q", q512, r1m, None, 0, T, G, n_super),
+                ("1m_1rank_64q", q512[:64], r1m, None, 0, T, G, n_super),
+                ("4card_tile_carry", q512[:128], t4[3],
+                 (carry4[0].clone(), carry4[1].clone()), 3 * R_pad4, T4, G4,
+                 n_super4)):
+            _timed(lambda: rb.ring_fold_cuda(q, r, c, offset, T_, G_, ns_,
+                                             out=c),
+                   repo=repo, kernel="ring_binfold", shape=label,
+                   S_loc=q.shape[0], E_loc=r.shape[0], R_pad=ns_ * G_ * T_,
+                   offset=offset, carry=c is not None)
     return 0
 
 

@@ -7,7 +7,10 @@ numpy model of the bin semantics (tests/test_ring_binfold.py), exactly, and
 against JAX ``ring_binfold_topk`` under ``shard_map`` on the CPU mesh, whose
 Pallas kernel runs in interpret mode there: the same neighbour sets on
 tie-free inputs made with numpy, and distances at rtol=1e-6 (the JAX
-interpreter may round the last bit of the coordinate sum differently). The CUDA kernel itself
+interpreter may round the last bit of the coordinate sum differently). The
+plain model of the kernel's work plan (``ring_fold_pieces_reference``) is
+held against the plain hop bit for bit, and through the virtual ring
+against JAX. The CUDA kernel itself
 is compared with the plain version, bit for bit, by the tests marked
 ``cuda``, which need a card; the card's machine has no JAX, so they run
 there without the conftest:
@@ -15,6 +18,7 @@ there without the conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_ring_binfold.py
 """
 
+import functools
 import itertools
 
 import numpy as np
@@ -146,9 +150,10 @@ def test_virtual_ring_matches_bin_model(ndev, S, E, k):
     np.testing.assert_allclose(vals.numpy(), d2, rtol=1e-6)
 
 
-@pytest.mark.fast
-@pytest.mark.parametrize("ndev,S,E,k", RING_CASES)
-def test_virtual_ring_matches_jax_ring(ndev, S, E, k):
+@functools.lru_cache(maxsize=None)
+def _jax_ring(ndev, S, E, k):
+    """JAX ``ring_binfold_topk`` under ``shard_map`` on the CPU mesh (its
+    Pallas kernel in interpret mode): numpy (vals, ids)."""
     jax = pytest.importorskip("jax")
     from jax.sharding import Mesh
     from jax.sharding import PartitionSpec as P
@@ -169,12 +174,100 @@ def test_virtual_ring_matches_jax_ring(ndev, S, E, k):
     fn = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(P(), P()),
                                out_specs=(P(), P()), check_vma=False))
     jv, ji = fn(q, refs)
+    return np.asarray(jv), np.asarray(ji)
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("ndev,S,E,k", RING_CASES)
+def test_virtual_ring_matches_jax_ring(ndev, S, E, k):
+    jv, ji = _jax_ring(ndev, S, E, k)
+    q, refs = _inputs(S, E)
     vals, idx, _ = _virtual(q, refs, ndev, k)
     np.testing.assert_array_equal(np.sort(idx.numpy(), axis=1),
-                                  np.sort(np.asarray(ji), axis=1))
+                                  np.sort(ji, axis=1))
     # the JAX interpreter may round the per-coordinate sum differently in
     # the last bit (as in tests/test_torch_binfold.py)
-    np.testing.assert_allclose(vals.numpy(), np.asarray(jv), rtol=1e-6)
+    np.testing.assert_allclose(vals.numpy(), jv, rtol=1e-6)
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("ndev,S,E,k", RING_CASES)
+def test_virtual_ring_of_pieces_matches_jax_ring(ndev, S, E, k):
+    """Every hop by the plain model of the kernel's plan (on 3 blocks):
+    JAX's neighbour sets and distances."""
+    jv, ji = _jax_ring(ndev, S, E, k)
+    q, refs = _inputs(S, E)
+    tiles = list(torch.from_numpy(refs).chunk(ndev))
+    vals, idx, _ = trb.ring_binfold_topk_virtual(
+        torch.from_numpy(q), tiles, k,
+        fold=functools.partial(trb.ring_fold_pieces_reference, n_blocks=3))
+    np.testing.assert_array_equal(np.sort(idx.numpy(), axis=1),
+                                  np.sort(ji, axis=1))
+    np.testing.assert_allclose(vals.numpy(), jv, rtol=1e-6)
+
+
+def _periodic(S, E, d, T, G, seed):
+    """Refs repeating every G*T positions: each bin sees the same value in
+    every super-tile, so every piece boundary cuts through exact ties."""
+    q, r = _inputs(S, G * T, d, seed)
+    return q, np.resize(r, (E, d))
+
+
+# name: (S, E, d, T, G, n_blocks, offset, carry); carry "other" is the fold
+# of another tile, "same" the fold of this tile (every bin ties with it)
+PIECE_HOPS = {
+    "ragged_E_and_S": (21, 9001, 3, 256, 4, 5, 3 * 9216, "other"),
+    "blocks_above_units": (7, 1000, 2, 128, 24, 40, 1024, "other"),
+    "d1": (9, 3000, 1, 128, 2, 40, 7 * 3072, "other"),
+    "d8": (13, 2000, 8, 128, 3, 4, 2048, "other"),
+    "all_pad_bins": (16, 1536, 3, 128, 4, 6, 5 * 1536, None),
+    "ties_across_pieces_and_carry": (20, 14 * 384, 3, 128, 3, 7, 5376,
+                                     "same"),
+}
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("name", sorted(PIECE_HOPS))
+def test_pieces_hop_equals_reference(name):
+    """The hop from the plan's pieces (keys on the local p, then the
+    offset and the carry merge) equals ring_fold_reference bit for bit:
+    ragged E and S, more blocks than units, d=1 and 8, offset != 0,
+    all-pad bins keeping (3.0e38, 0), ties across piece boundaries and
+    against the carry (the carry wins)."""
+    S, E, d, T, G, n_blocks, offset, carry_kind = PIECE_HOPS[name]
+    if name == "ties_across_pieces_and_carry":
+        q, r = _periodic(S, E, d, T, G, seed=6)
+    else:
+        q, r = _inputs(S, E, d, seed=8)
+    r = r.copy()
+    period = G * T if name == "ties_across_pieces_and_carry" else E
+    r[np.arange(E) % period % 7 == 0] = 1e30  # +inf in some pieces
+    if name == "all_pad_bins":
+        r[:] = 1e30
+    qt, rt = torch.from_numpy(q), torch.from_numpy(r)
+    G_eff, n_super = tbf._geometry(E, T, G)
+    carry = None
+    if carry_kind == "other":
+        carry = trb.ring_fold_reference(qt, rt.flip(0).contiguous() * 0.5,
+                                        None, 0, T, G_eff, n_super)
+    elif carry_kind == "same":
+        carry = trb.ring_fold_reference(qt, rt, None, 0, T, G_eff, n_super)
+    pv, pi = trb.ring_fold_reference(qt, rt, carry, offset, T, G_eff,
+                                     n_super)
+    kv, ki = trb.ring_fold_pieces_reference(qt, rt, carry, offset, T, G_eff,
+                                            n_super, n_blocks)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    _, _, units, _ = tbf.fold_plan(S, G_eff, n_super, 1, d, 1)
+    if name == "blocks_above_units":
+        assert n_blocks > units
+    if name == "all_pad_bins":
+        assert (pv == 3.0e38).all() and (pi == 0).all()
+    if name == "ties_across_pieces_and_carry":
+        assert torch.equal(kv, carry[0]) and torch.equal(ki, carry[1])
+        assert (ki < G_eff * T).all()  # the first super-tile's p, offset 0
+    if carry_kind == "other":  # both the tile and the carry win some bins
+        took = ki >= offset
+        assert took.any() and not took.all()
 
 
 @pytest.mark.fast
@@ -213,6 +306,9 @@ def cuda_device():
     (128, 1_424_936, 3, 2048, 24, 2 * 1_425_408, True),
     (64, 20_077, 4, 2048, 24, 0, False),
     (50, 9001, 2, 2048, 24, 7 * 10_240, True),
+    (7, 9001, 2, 2048, 24, 10_240, True),     # fewer units than blocks
+    (37, 300_001, 1, 2048, 24, 300_032, True),  # d=1, ragged pieces
+    (45, 100_000, 8, 2048, 24, 3 * 100_352, True),  # d=8, 8 queries a block
 ])
 def test_kernel_matches_plain(cuda_device, S, E, d, T, G, offset, carry):
     q, r = _inputs(S, E, d, seed=2)
@@ -234,6 +330,56 @@ def test_kernel_matches_plain(cuda_device, S, E, d, T, G, offset, carry):
         out = trb.ring_fold_cuda(qt, rt, c, offset, T, G_eff, n_super, out=c)
         torch.cuda.synchronize()
         assert torch.equal(out[0], pv) and torch.equal(out[1], pi)
+
+
+@pytest.mark.cuda
+def test_kernel_ties_across_pieces_and_carry_in_place(cuda_device):
+    """Refs repeating every G*T positions at the 1M shape's super-tile
+    count, on 64 queries, and a carry folded from the same tile: every bin
+    ties in all 116 super-tiles and with the carry. In place, the carry
+    must come out unchanged."""
+    T, G = 2048, 24
+    q, r = _periodic(64, 5_699_741, 3, T, G, seed=12)
+    qt = torch.from_numpy(q).to(cuda_device)
+    rt = torch.from_numpy(r).to(cuda_device)
+    G_eff, n_super = tbf._geometry(len(r), T, G)
+    R_pad = n_super * G_eff * T
+    first = trb.ring_fold_cuda(qt, rt, None, 0, T, G_eff, n_super)
+    torch.cuda.synchronize()
+    pv, pi = trb.ring_fold_reference(qt, rt[:G_eff * T], None, 0, T, G_eff, 1)
+    assert torch.equal(first[0], pv) and torch.equal(first[1], pi)
+    carry = (first[0].clone(), first[1].clone())
+    out = trb.ring_fold_cuda(qt, rt, carry, R_pad, T, G_eff, n_super,
+                             out=carry)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], pv) and torch.equal(out[1], pi)
+
+
+@pytest.mark.cuda
+def test_kernel_scratch_reused_and_checked(cuda_device):
+    """One scratch serves two hops of its shape (in place on the carry, as
+    the ring runs them); a scratch made for another shape is refused."""
+    T, G = 2048, 24
+    q, r = _inputs(50, 30_000, 3, seed=9)
+    qt = torch.from_numpy(q).to(cuda_device)
+    rt = torch.from_numpy(r).to(cuda_device)
+    G_eff, n_super = tbf._geometry(len(r), T, G)
+    scratch = trb.ring_fold_scratch(50, 3, G_eff, n_super, qt.device)
+    carry = trb.ring_fold_cuda(qt, rt, None, 0, T, G_eff, n_super,
+                               scratch=scratch)
+    pv, pi = trb.ring_fold_reference(qt, rt, None, 0, T, G_eff, n_super)
+    flip = rt.flip(0).contiguous()
+    pv, pi = trb.ring_fold_reference(qt, flip, (pv, pi), 10**6, T, G_eff,
+                                     n_super)
+    out = trb.ring_fold_cuda(qt, flip, carry, 10**6, T, G_eff, n_super,
+                             out=carry, scratch=scratch)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], pv) and torch.equal(out[1], pi)
+    other = trb.ring_fold_scratch(40, 3, G_eff, n_super, qt.device)
+    before = trb.ring_fold.launches
+    with pytest.raises(ValueError, match="scratch made for"):
+        trb.ring_fold_cuda(qt, rt, None, 0, T, G_eff, n_super, scratch=other)
+    assert trb.ring_fold.launches == before
 
 
 @pytest.mark.cuda
