@@ -17,7 +17,9 @@ Phases:
 3. K1 against its plain version: the bin-fold kernel and its plain
    PyTorch version on the same inputs, at the main path's shapes (S=512,
    d=3, T=2048, G=24, against 800,000 and 5,699,741 refs, 1 in 40 at the
-   1e30 pad) and S=416, small ragged and G-clamped cases at d=2 and d=4
+   1e30 pad), at the toolkit's (S=512, d=3 against the refs of
+   phase 15's graph, read from an engine built as run_benchmark builds
+   it) and S=416, small ragged and G-clamped cases at d=2 and d=4
    with fewer work units than resident blocks, n_super=1, d=1 with ragged
    pieces, d=8 (8 queries per block), and refs repeating every G*T
    positions, so that every piece boundary of the plan cuts exact ties.
@@ -49,7 +51,12 @@ Phases:
    graph (union of four random Hamiltonian cycles, seed 0), the force
    parameters of bench.py, scipy spectral init, then run_layout(50);
 6. main path, 1M vertices: ring + 3M random chords as in bench.py,
-   init='random', run_layout(50); binned table + overflow plan;
+   init='auto', which is the Chebyshev tier on the card from 500,000
+   vertices (main_setup prints init_s, the Chebyshev seconds, the Ritz
+   values, the SpMV's overflow form and the set-up's peak memory, and
+   fails if the init tiered down), then run_layout(50); binned table +
+   overflow plan. Both main paths fail if K1 runs at a shape that phase 3
+   did not check;
 7. quick start, both graphs: create_graphem(backend='cuvs') (the 'pallas'
    strategy, K2), run_layout(50) timed, graphem_seed_selection (20 more
    iterations), then estimated_influence of the seeds and of 10 random
@@ -88,7 +95,9 @@ Phases:
     in place into a carry;
 11. the sharded path: distributed_init starts a one-rank NCCL group (a
     file:// store in a temporary directory); ShardedGraphEmbedder with
-    knn_comm='ring_pallas' on both graphs, warm-up, then 50 timed
+    knn_comm='ring_pallas' on both graphs (at 100K with init='chebyshev',
+    whose start must equal phase 14's single-card Chebyshev modulo column
+    signs at atol=1e-4), warm-up, then 50 timed
     iterations: one ring hop (one K3 launch) per iteration and no K1
     launch; then knn_comm='all_gather' at 1M, whose local top-k is K1;
     with --profile also 'ring_pallas' at 1M on a one-rank mesh without a
@@ -102,18 +111,46 @@ Phases:
     same positions and sample, positions are bit-equal on every rank after
     5 steps, and after 3 run_layout iterations every rank draws the same
     next sample and each rank's own update stayed within REPLICA_GAP_LIMIT
-    of rank 0's before the broadcast; with --profile each rank then times
+    of rank 0's before the broadcast; each rank's row-sharded Chebyshev
+    start (one all_gather per matvec) equals rank 0's and its own
+    single-card runner's modulo column signs at atol=1e-4; with --profile
+    each rank then times
     20 iterations of the 1M graph with 'ring_pallas' and with 'all_gather'.
     On one card the phase prints {"phase": "multi_card", "skipped":
-    "1 card"} and runs nothing.
+    "1 card"} and runs nothing;
+14. spectral init, run after phase 10: the Chebyshev tier on the card
+    (twice: cold, then warm with its peak memory) against the same on the
+    CPU (alignment >= 0.999, the smallest canonical correlation of the
+    spans) and host eigsh, on three 100K graphs, each line with the SpMV's
+    overflow form: ring + 300K chords (the 1M
+    graph's construction at 100K), whose lowest eigenvalues are apart,
+    where the card must align with eigsh at >= 0.95; the same with three
+    hubs of 20,000, 10,000 and 5,000 edges, which must take the hub
+    block-fold plan (index_add_ on the card, not bit-reproducible), align
+    with eigsh at >= 0.95, and whose card columns must equal the CPU's
+    modulo sign at atol=1e-4; and the main path's
+    8-regular graph, whose 8 lowest nontrivial eigenvalues lie within
+    1.2e-3 of each other, where the alignment is printed and the card's span must
+    lie in eigsh's 8 lowest nontrivial eigenvectors at >= 0.95. LOBPCG on
+    the card on the first graph: finite, its alignment printed;
+15. toolkit, run after phase 12: run_benchmark(generate_ba, n=20,000,
+    m=3, compute_centrality=False) on the card (K1, one launch per
+    iteration, at the shape phase 3 checked), Spearman(radius, degree) >=
+    0.5; the vendored karate
+    graph (load_dataset_as_adjacency, a temporary data directory) through
+    create_graphem and run_layout(30), Spearman > 0.4.
 
-Each main-path, quick-start and sharded phase zeroes the kernels' launch
-counts just before its timed run and reads them just after. The line
-before the last is the kernel summary {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Any failure raises and exits nonzero.
+Each main-path, quick-start, sharded and toolkit phase zeroes the kernels'
+launch counts just before its timed run and reads them just after. A
+handler on the spectral init's logger records every tier-down warning, and
+a phase whose engines logged one fails. The line before the last is the
+kernel summary {"kernels": [...]}; the last line is {"ok": true,
+"device": {...}}. Any failure raises and exits nonzero.
 """
 
+import contextlib
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -126,7 +163,55 @@ import torch
 FORCE_PARAMS = dict(L_min=10.0, k_attr=0.5, k_inter=0.1, n_neighbors=15,
                     sample_size=512)
 ITERS = 50
+# phase 14's hub graph: the card's Chebyshev columns against the CPU's,
+# modulo sign (JAX's atol for its sharded runner against the single one)
+SPECTRAL_BLOCK_ATOL = 1e-4
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+
+
+class SpectralLog(logging.Handler):
+    """The spectral init's log records: the Chebyshev tier's seconds and
+    Ritz values (INFO) and any tier-down (WARNING)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def take(self, label):
+        """The records since the last take; raises on a tier-down."""
+        out, self.records = self.records, []
+        down = [r.getMessage() for r in out if r.levelno >= logging.WARNING]
+        if down:
+            raise AssertionError(f"{label}: the spectral init tiered down: "
+                                 f"{down}")
+        return out
+
+
+def spectral_log():
+    """A SpectralLog attached to the port's laplacian logger."""
+    log = SpectralLog()
+    lg = logging.getLogger("graphem_rapids_torch.ops.laplacian")
+    lg.addHandler(log)
+    lg.setLevel(logging.INFO)
+    return log
+
+
+def alignment(X, Y):
+    """Smallest canonical correlation between the column spans."""
+    Qx, _ = np.linalg.qr(np.asarray(X, np.float64))
+    Qy, _ = np.linalg.qr(np.asarray(Y, np.float64))
+    return float(np.linalg.svd(Qx.T @ Qy, compute_uv=False).min())
+
+
+def max_err_modulo_signs(X, Y):
+    """Largest |X - Y| over columns, each column's sign chosen best."""
+    X, Y = np.asarray(X, np.float64), np.asarray(Y, np.float64)
+    return float(max(min(np.abs(X[:, c] - Y[:, c]).max(),
+                         np.abs(X[:, c] + Y[:, c]).max())
+                     for c in range(Y.shape[1])))
 
 
 def emit(phase, **fields):
@@ -180,6 +265,25 @@ def ring_chords_graph(n=1_000_000, chords=3_000_000, seed=0):
     return a + a.T
 
 
+def hub_chords_graph(n=100_000, chords=300_000, hubs=(20_000, 10_000, 5_000),
+                     seed=0):
+    """ring_chords_graph plus hubs 0, 1, 2 joined to 20,000, 10,000 and
+    5,000 random vertices: rows far past the SpMV table's cap, so the
+    Chebyshev tier folds them through the hub block-fold plan."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed + 1)
+    e = np.concatenate([
+        np.column_stack([np.full(d, h), rng.choice(n, d, replace=False)])
+        for h, d in enumerate(hubs)])
+    e = e[e[:, 0] != e[:, 1]]
+    b = sp.coo_matrix((np.ones(len(e)), (e[:, 0], e[:, 1])),
+                      shape=(n, n)).tocsr()
+    a = ring_chords_graph(n, chords, seed) + b + b.T
+    a.data[:] = 1
+    return a.tocsr()
+
+
 def back_to_back_ms(fn, reps=20, warmup=3):
     """The card's ms per call of ``fn()``: CUDA events around ``reps``
     calls launched back to back, so the host's enqueueing of one call
@@ -221,10 +325,14 @@ def spills(ptxas):
         for ln in ptxas)
 
 
-def phase_kernel(bf, fp32_instr_per_s, build_report):
-    """Phase 3: K1 against its plain version on the card."""
+def phase_kernel(bf, fp32_instr_per_s, build_report, toolkit_shape):
+    """Phase 3: K1 against its plain version on the card, at the main
+    path's and the toolkit's shapes (``toolkit_shape``: its (S, E, d)) and
+    at the plan's edges. Returns the timings and 'checked', the (S, E, d,
+    T, G, n_super) of every case."""
     gen = torch.Generator(device="cpu").manual_seed(0)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    checked = set()
 
     def inputs(S, E, d, pad_rows=0):
         q = torch.randn(S, d, generator=gen)
@@ -262,6 +370,7 @@ def phase_kernel(bf, fp32_instr_per_s, build_report):
              max_abs_err=err)
         if not (bins_equal and topk_equal):
             raise AssertionError(f"binfold kernel disagrees with plain: {name}")
+        checked.add((q.shape[0], r.shape[0], q.shape[1], T, G_eff, n_super))
         return G_eff, n_super, err
 
     S, d, k, T = 512, 3, 16, 2048
@@ -273,6 +382,8 @@ def phase_kernel(bf, fp32_instr_per_s, build_report):
     check("ragged_d2_gclamp", *inputs(7, 9001, 2), 4)  # fewer units than blocks
     check("ragged_d4_gclamp", *inputs(7, 20_000 + 77, 4), 5)
     check("n_super_1", *inputs(500, 24 * 2048, d, pad_rows=1000), k)
+    S_t, E_t, d_t = toolkit_shape
+    check("toolkit_ba_20k", *inputs(S_t, E_t, d_t, pad_rows=E_t // 40), k)
     check("ragged_pieces_d1", *inputs(37, 300_001, 1, pad_rows=77), k)
     check("d8_8_queries_per_block", *inputs(45, 100_000, 8, pad_rows=99), k)
     tile = torch.randn(24 * T, d, generator=gen).cuda()
@@ -284,7 +395,7 @@ def phase_kernel(bf, fp32_instr_per_s, build_report):
     emit("kernel_ptxas", name="knn_binfold", d=d, ptxas=ptx)
     if not ptx or spills(ptx):
         raise AssertionError(f"binfold kernel at d=3: {ptx}")
-    out = {"max_abs_err": err_main}
+    out = {"max_abs_err": err_main, "checked": checked}
     # the plain version on all 512 rows: in one call at 100K, as before; at
     # 1M 64 rows a call (an (S, E_pad) block of 11.7 GB otherwise)
     for label, qq, rr, rows in (("100k", q, r, S), ("1m", q1m, r1m, 64)):
@@ -576,19 +687,78 @@ def profile_call(phase, label, warm, fn, untraced_ms, per):
               for us, key, c in rows[:12]])
 
 
-def phase_main(grt, bf, label, adj, expect_table, init, warmup, profile):
+@contextlib.contextmanager
+def k1_shapes(bf, checked, label):
+    """Records the (S, E, d, T, G, n_super) of every K1 launch inside; on
+    leaving, fails if one of them is not a shape phase 3 ``checked``."""
+    shapes, launch = set(), bf.binfold_bins_cuda
+
+    def recorded(q, r, T, G, n_super):
+        shapes.add((q.shape[0], r.shape[0], q.shape[1], T, G, n_super))
+        return launch(q, r, T, G, n_super)
+
+    bf.binfold_bins_cuda = recorded
+    try:
+        yield shapes
+    finally:
+        bf.binfold_bins_cuda = launch
+    if not shapes <= checked:
+        raise AssertionError(f"{label}: K1 ran at {sorted(shapes - checked)}"
+                             ", which phase 3 did not check")
+
+
+TOOLKIT_PARAMS = {"n": 20_000, "m": 3, "seed": 0}
+
+
+def toolkit_k1_shape(grt):
+    """The (S, E, d) of the toolkit phase's K1 launches: its graph in an
+    engine built with run_benchmark's defaults (the init does not change
+    the refs)."""
+    emb = grt.GraphEmbedderTorch(
+        grt.generate_ba(**TOOLKIT_PARAMS), n_components=3, seed=0,
+        verbose=False, init="random", knn_strategy="auto", **FORCE_PARAMS)
+    if emb._strategy != "binfold":
+        raise AssertionError(f"toolkit: strategy {emb._strategy}, expected "
+                             "binfold")
+    refs = (len(emb._nb["ref_edge"]) if emb._fused_refs_active
+            else emb.n_edges)
+    return emb.sample_size, int(refs), 3
+
+
+def chebyshev_fields(log, label, expected):
+    """The Chebyshev tier's seconds and Ritz values from its log record;
+    fails on a tier-down, or if the tier ran other than ``expected``
+    times."""
+    runs = [r for r in log.take(label) if hasattr(r, "ritz")]
+    if len(runs) != expected:
+        raise AssertionError(f"{label}: the Chebyshev tier ran {len(runs)} "
+                             f"times, expected {expected}")
+    if not runs:
+        return {}
+    return dict(chebyshev_s=runs[0].chebyshev_seconds, ritz=runs[0].ritz,
+                spmv_overflow=runs[0].overflow,
+                spmv_overflow_pairs=runs[0].overflow_pairs)
+
+
+def phase_main(grt, bf, label, adj, expect_table, init, warmup, profile,
+               log, checked):
     """Phases 5/6: construct, warm up, then the timed run_layout."""
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     emb = grt.GraphEmbedderTorch(adj, n_components=3, seed=0, verbose=False,
                                  init=init, **FORCE_PARAMS)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    device_tier = init == "chebyshev" or (init == "auto"
+                                          and emb.n >= 500_000)
     emit("main_setup", graph=label, n=emb.n, E=emb.n_edges,
          table=emb.table_kind, strategy=emb._strategy,
          fused_refs=emb._fused_refs_active,
          refs=int(len(emb._nb["ref_edge"])),
          overflow_pairs=int(len(emb._nb["overflow"])), init=init,
-         init_s=init_s)
+         init_s=init_s,
+         setup_peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+         **chebyshev_fields(log, label, int(device_tier)))
     if emb.table_kind != expect_table:
         raise AssertionError(f"{label}: table {emb.table_kind}, "
                              f"expected {expect_table}")
@@ -598,9 +768,10 @@ def phase_main(grt, bf, label, adj, expect_table, init, warmup, profile):
 
     bf.knn_binfold.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    pos = emb.run_layout(ITERS, block_size=10)
-    dt = time.perf_counter() - t0
+    with k1_shapes(bf, checked, label):
+        t0 = time.perf_counter()
+        pos = emb.run_layout(ITERS, block_size=10)
+        dt = time.perf_counter() - t0
     launches = bf.knn_binfold.launches
     std = pos.std(axis=0, ddof=1)
     emit("main_run", graph=label, iters=ITERS, seconds=dt,
@@ -865,10 +1036,12 @@ def phase_kernel_k3(rb, bf, fp32_instr_per_s, build_report):
     return out
 
 
-def phase_sharded(grt, bf, rb, label, adj, init, warmup, profile,
-                  knn_comm="ring_pallas", mesh=None):
+def phase_sharded(grt, bf, rb, label, adj, init, warmup, profile, log,
+                  knn_comm="ring_pallas", mesh=None, start_ref=None):
     """Phase 11: ShardedGraphEmbedder on the one-rank NCCL mesh, or on
-    ``mesh`` (a one-rank mesh without a process group, for comparison)."""
+    ``mesh`` (a one-rank mesh without a process group, for comparison).
+    ``start_ref``: the single-card Chebyshev start the engine's own must
+    equal modulo column signs."""
     import torch.distributed as dist
 
     nccl = mesh is None
@@ -880,6 +1053,13 @@ def phase_sharded(grt, bf, rb, label, adj, init, warmup, profile,
                                    init=init, **FORCE_PARAMS)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    start = {}
+    if start_ref is not None:
+        pos0 = emb.positions
+        start = dict(start_max_err=max_err_modulo_signs(pos0, start_ref),
+                     start_bit_equal=bool(np.array_equal(pos0, start_ref)),
+                     **chebyshev_fields(log, label, 1))
+    log.take(label)
     refs = int(len(emb._nb["ref_edge"])) if emb._fused_refs_active \
         else emb.n_edges
     k = FORCE_PARAMS["n_neighbors"] + 1
@@ -891,7 +1071,11 @@ def phase_sharded(grt, bf, rb, label, adj, init, warmup, profile,
          ranks=mesh.world_size, backend=backend,
          n=emb.n, E=emb.n_edges, table=emb.table_kind,
          fused_refs=emb._fused_refs_active, refs=refs, R_pad=R_pad, G=G,
-         n_super=n_super, S_loc=S_loc, init=init, init_s=init_s)
+         n_super=n_super, S_loc=S_loc, init=init, init_s=init_s, **start)
+    if start and not start["start_max_err"] < 1e-4:
+        raise AssertionError(f"{label}: the sharded Chebyshev start is "
+                             f"{start['start_max_err']} from the single-card "
+                             "one (modulo signs; atol 1e-4)")
     if (nccl and backend != "nccl") or emb.device.type != "cuda":
         raise AssertionError(f"{label}: the sharded path must run on the "
                              "card's NCCL group")
@@ -964,6 +1148,128 @@ def _sharded_vs_single(grt):
          atol=1e-5, allclose=ok)
     if not ok:
         raise AssertionError("one-rank ring_pallas disagrees with binfold")
+
+
+def phase_spectral(log, graphs):
+    """Phase 14: the Chebyshev tier on the card against the CPU and host
+    eigsh, and LOBPCG on the card; returns {label: the card's start}.
+
+    ``graphs``: (label, adjacency, check), check one of 'eigsh' (the card
+    within eigsh's 3 lowest nontrivial eigenvectors, and LOBPCG), 'span'
+    (within eigsh's 8 lowest) or 'block_plan' (the SpMV takes the hub
+    block-fold plan: eigsh as 'eigsh', and the card's columns equal the
+    CPU's modulo sign at SPECTRAL_BLOCK_ATOL)."""
+    import scipy.sparse.linalg as spla
+
+    from graphem_rapids_torch.ops import laplacian as lap
+
+    starts = {}
+    for label, adj, check in graphs:
+        L = lap._normalized_laplacian(adj)
+        t0 = time.perf_counter()
+        # eigenpairs with the trivial one: 4, or 9 for the span check
+        lam, V = spla.eigsh(L, 9 if check == "span" else 4, which="SM",
+                            v0=np.random.default_rng(0).standard_normal(
+                                adj.shape[0]))
+        eigsh_s = time.perf_counter() - t0
+        runs = []
+        for _ in range(2):  # cold, then warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            card = lap._spectral_chebyshev(adj, 3, seed=0, device="cuda")
+            runs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        cheb = chebyshev_fields(log, label, 2)
+        t0 = time.perf_counter()
+        cpu = lap._spectral_chebyshev(adj, 3, seed=0, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        log.take(label)
+        fields = dict(
+            graph=label, n=adj.shape[0], check=check,
+            spmv_overflow=cheb["spmv_overflow"],
+            spmv_overflow_pairs=cheb["spmv_overflow_pairs"],
+            seconds_cold=runs[0], seconds=runs[1], peak_mem_gib=peak,
+            cpu_seconds=cpu_s, eigsh_seconds=eigsh_s,
+            eigsh_eigenvalues=lam.tolist(), ritz=cheb["ritz"],
+            align_card_cpu=alignment(card, cpu),
+            max_err_card_cpu=max_err_modulo_signs(card, cpu),
+            align_card_eigsh=alignment(card, V[:, 1:4]),
+            finite=bool(np.isfinite(card).all()))
+        if check == "span":
+            fields["align_card_in_eigsh_8"] = alignment(card, V[:, 1:9])
+        elif check == "eigsh":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lob = lap._spectral_lobpcg(L, 3, seed=0, device="cuda")
+            fields.update(lobpcg_seconds=time.perf_counter() - t0,
+                          lobpcg_finite=bool(np.isfinite(lob).all()),
+                          lobpcg_align_eigsh=alignment(lob, V[:, 1:4]))
+        emit("spectral", **fields)
+        if not fields["finite"] or fields["align_card_cpu"] < 0.999:
+            raise AssertionError(f"{label}: the card's Chebyshev start is "
+                                 "not the CPU's")
+        gate = fields["align_card_in_eigsh_8" if check == "span"
+                      else "align_card_eigsh"]
+        if gate < 0.95 or not fields.get("lobpcg_finite", True):
+            raise AssertionError(f"{label}: the card's spectral start missed "
+                                 f"eigsh ({gate} < 0.95) or LOBPCG is not "
+                                 "finite")
+        if check == "block_plan" and (
+                fields["spmv_overflow"] != "block"
+                or fields["max_err_card_cpu"] > SPECTRAL_BLOCK_ATOL):
+            raise AssertionError(
+                f"{label}: overflow {fields['spmv_overflow']} (block "
+                f"wanted), card against CPU {fields['max_err_card_cpu']} "
+                f"modulo signs (<= {SPECTRAL_BLOCK_ATOL} wanted)")
+        starts[label] = card
+    return starts
+
+
+def phase_toolkit(grt, bf, log, checked):
+    """Phase 15: run_benchmark on the card (K1, at shapes phase 3
+    ``checked``), and a vendored dataset embedded; returns K1's
+    launches."""
+    from scipy.stats import spearmanr
+
+    params = TOOLKIT_PARAMS
+    bf.knn_binfold.launches = 0
+    with k1_shapes(bf, checked, "toolkit") as shapes:
+        res = grt.run_benchmark(grt.generate_ba, params,
+                                compute_centrality=False, seed=0)
+    launches = bf.knn_binfold.launches
+    deg = grt.compute_vertex_degrees(grt.generate_ba(**params))
+    rho = float(spearmanr(res["radii"], deg).statistic)
+    finite = bool(np.isfinite(res["positions"]).all())
+    saved = os.environ.get("GRAPHEM_DATA_DIR")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.environ["GRAPHEM_DATA_DIR"] = tmp
+            adj = grt.load_dataset_as_adjacency("local-karate")
+    finally:
+        if saved is None:
+            os.environ.pop("GRAPHEM_DATA_DIR", None)
+        else:
+            os.environ["GRAPHEM_DATA_DIR"] = saved
+    emb = grt.create_graphem(adj, n_components=2, seed=0, verbose=False)
+    pos = emb.run_layout(30)
+    rho_karate = float(spearmanr(np.linalg.norm(pos, axis=1),
+                                 grt.compute_vertex_degrees(adj)).statistic)
+    log.take("toolkit")
+    emit("toolkit", benchmark="run_benchmark(generate_ba)", **params,
+         m_edges=res["m"], layout_time=res["layout_time"],
+         edges_per_second=res["edges_per_second"], binfold_launches=launches,
+         binfold_shapes=sorted(shapes),
+         spearman_radius_degree=rho, finite=finite,
+         karate_n=adj.shape[0], karate_device=str(emb.device),
+         karate_spearman_radius_degree=rho_karate)
+    if launches != 40 or not finite or rho < 0.5:
+        raise AssertionError(f"toolkit: {launches} K1 launches in 40 "
+                             f"iterations, Spearman {rho} (>= 0.5 wanted)")
+    if emb.device.type != "cuda" or not np.isfinite(pos).all() \
+            or rho_karate <= 0.4:
+        raise AssertionError(f"karate: Spearman {rho_karate} (> 0.4 wanted)")
+    return launches
 
 
 def _user_edges(adj):
@@ -1055,7 +1361,18 @@ def _rank_checks(grt, rank, world, tmp, profile):
     virtual = (local + owner * E_loc)[:, 1:]
     sets_equal = bool(torch.equal(torch.sort(knn_idx, dim=1).values,
                                   torch.sort(virtual, dim=1).values))
+    # each rank's row-sharded Chebyshev start, before any broadcast,
+    # against rank 0's and against its own single-card runner's
+    from graphem_rapids_torch.ops.laplacian import _spectral_chebyshev
+
+    cheb = _spectral_chebyshev(adj, 3, seed=0, mesh=mesh)
+    cheb_all = mesh.all_gather(torch.as_tensor(cheb, device=dev)).cpu()
+    cheb_vs_rank0 = max_err_modulo_signs(cheb, cheb_all[0].numpy())
+    cheb_vs_single = max_err_modulo_signs(
+        cheb, _spectral_chebyshev(adj, 3, seed=0, device=dev))
     res = {"rank": rank, "device": str(dev), "ranks_bit_equal": ranks_equal,
+           "chebyshev_vs_rank0": cheb_vs_rank0,
+           "chebyshev_vs_single_card": cheb_vs_single,
            "ring_binfold_launches": launches, "sets_equal": sets_equal,
            "samples_equal": samples_equal, "replica_gap": gap,
            "replica_gap_limit": REPLICA_GAP_LIMIT,
@@ -1078,7 +1395,8 @@ def _rank_checks(grt, rank, world, tmp, profile):
     # one hop per rank per step; the CPU (a gloo rehearsal) has no kernel
     want = 5 * world if dev.type == "cuda" else 0
     ok = (ranks_equal and sets_equal and samples_equal and launches == want
-          and gap <= REPLICA_GAP_LIMIT and layout_error is None)
+          and gap <= REPLICA_GAP_LIMIT and layout_error is None
+          and cheb_vs_rank0 < 1e-4 and cheb_vs_single < 1e-4)
     return 0 if ok else 1
 
 
@@ -1171,15 +1489,22 @@ def main(argv):
         }}), flush=True)
         return 0
 
-    k1 = phase_kernel(bf, fp32_instr_per_s, report)
+    k1 = phase_kernel(bf, fp32_instr_per_s, report, toolkit_k1_shape(grt))
     k2 = phase_kernel_k2(kp, knn_exact, fp32_instr_per_s, report)
     k3 = phase_kernel_k3(rb, bf, fp32_instr_per_s, report)
+    log = spectral_log()
     adj100k, adj1m = regular_union_graph(100_000), ring_chords_graph()
+    starts = phase_spectral(log, [
+        ("ring_chords_100k", ring_chords_graph(100_000, 300_000), "eigsh"),
+        ("hub_chords_100k", hub_chords_graph(), "block_plan"),
+        ("random_8_regular_100k", adj100k, "span"),
+    ])
     launches = phase_main(grt, bf, "random_8_regular_100k", adj100k, "flat",
-                          "auto", warmup=10, profile=profile)
+                          "auto", warmup=10, profile=profile, log=log,
+                          checked=k1["checked"])
     launches += phase_main(grt, bf, "ring_chords_1m", adj1m,
-                           "binned+overflow plan", "random", warmup=5,
-                           profile=profile)
+                           "binned+overflow plan", "auto", warmup=5,
+                           profile=profile, log=log, checked=k1["checked"])
     k2_launches = phase_quickstart(grt, bf, kp, "random_8_regular_100k",
                                    adj100k, "auto", warmup=5, profile=profile)
     k2_launches += phase_quickstart(grt, bf, kp, "ring_chords_1m", adj1m,
@@ -1192,25 +1517,29 @@ def main(argv):
         grt.distributed_init(backend="nccl", init_method=f"file://{tmp}/store",
                              world_size=1, rank=0)
         try:
-            k3_launches, _ = phase_sharded(grt, bf, rb,
-                                           "random_8_regular_100k", adj100k,
-                                           "auto", 10, profile)
+            k3_launches, _ = phase_sharded(
+                grt, bf, rb, "random_8_regular_100k", adj100k, "chebyshev",
+                10, profile, log,
+                start_ref=starts["random_8_regular_100k"])
             ring1m, _ = phase_sharded(grt, bf, rb, "ring_chords_1m", adj1m,
-                                      "random", 5, profile)
+                                      "random", 5, profile, log)
             k3_launches += ring1m
             phase_sharded(grt, bf, rb, "ring_chords_1m", adj1m, "random", 3,
-                          False, knn_comm="all_gather")
+                          False, log, knn_comm="all_gather")
             if profile:
                 # the same one rank without a process group: collectives
                 # return their input, so this prices the NCCL calls above
                 phase_sharded(grt, bf, rb, "ring_chords_1m", adj1m, "random",
-                              5, False, mesh=grt.parallel.Mesh(1, 0, "cuda:0"))
+                              5, False, log,
+                              mesh=grt.parallel.Mesh(1, 0, "cuda:0"))
             phase_sharded_vs_single(grt)
         finally:
             # before the store's directory goes: a live group would wait on
             # it at exit
             dist.destroy_process_group()
+    launches += phase_toolkit(grt, bf, log, k1["checked"])
     phase_multi_card(profile=profile)
+    log.take("smoke run")
 
     print(json.dumps({"kernels": [{
         "name": "knn_binfold",

@@ -5,10 +5,16 @@ NVIDIA H100. The JAX package is the reference this package is held
 against; this package never imports it, nor JAX.
 
     import graphem_rapids_torch as grt
-    emb = grt.create_graphem(adj, n_components=3, backend="cuvs")  # CUDA
+    adj = grt.erdos_renyi_graph(n=1000, p=0.01)
+    emb = grt.create_graphem(adj, n_components=3, seed=42)  # CUDA
     emb.run_layout(50)
     seeds = grt.graphem_seed_selection(emb, k=10)
     spread = grt.estimated_influence(adj, seeds, p=0.1)
+
+The toolkit of the JAX package comes along: the 13 graph generators (numpy
+and scipy), the dataset loaders, the benchmarks (``run_benchmark``, ...)
+and the reports; networkx, pandas and plotly are needed only by the
+functions that return or draw their objects.
 
 Pass ``device='cpu'`` to run on the CPU (the kNN kernels then run their
 plain PyTorch versions); without it every entry point needs a CUDA card.
@@ -25,7 +31,34 @@ import logging
 import numpy as np
 import torch
 
+from .benchmark import (
+    benchmark_correlations,
+    run_benchmark,
+    run_influence_benchmark,
+)
 from .convert import state_from_jax
+from .datasets import (
+    list_available_datasets,
+    load_dataset,
+    load_dataset_as_adjacency,
+    load_dataset_as_networkx,
+)
+from .generators import (
+    compute_vertex_degrees,
+    erdos_renyi_graph,
+    generate_ba,
+    generate_balanced_tree,
+    generate_bipartite_graph,
+    generate_caveman,
+    generate_geometric,
+    generate_power_cluster,
+    generate_random_regular,
+    generate_relaxed_caveman,
+    generate_road_network,
+    generate_sbm,
+    generate_scale_free,
+    generate_ws,
+)
 from .influence import (
     estimated_influence,
     graphem_seed_selection,
@@ -45,6 +78,12 @@ from .utils.backend_selection import (
     check_device_count,
     get_default_config,
     get_optimal_backend,
+)
+from .visualization import (
+    display_benchmark_results,
+    plot_radial_vs_centrality,
+    report_corr,
+    report_full_correlation_matrix,
 )
 
 __version__ = "0.1.0"
@@ -134,21 +173,53 @@ def get_backend_info():
 
 
 __all__ = [
+    # factory and engines
     "create_graphem",
-    "get_backend_info",
     "GraphEmbedderTorch",
+    "ShardedGraphEmbedder",
     "GraphEmbedderPyTorch",
     "GraphEmbedderCuVS",
-    "ShardedGraphEmbedder",
     "make_mesh",
     "default_mesh",
     "distributed_init",
+    # graph generators
+    "erdos_renyi_graph",
+    "generate_sbm",
+    "generate_ba",
+    "generate_ws",
+    "generate_caveman",
+    "generate_geometric",
+    "generate_scale_free",
+    "generate_road_network",
+    "generate_balanced_tree",
+    "generate_power_cluster",
+    "generate_random_regular",
+    "generate_bipartite_graph",
+    "generate_relaxed_caveman",
+    "compute_vertex_degrees",
+    # influence maximization
     "graphem_seed_selection",
     "ndlib_estimated_influence",
     "estimated_influence",
     "greedy_seed_selection",
+    # visualization
+    "report_corr",
+    "report_full_correlation_matrix",
+    "plot_radial_vs_centrality",
+    "display_benchmark_results",
+    # datasets
+    "load_dataset",
+    "load_dataset_as_networkx",
+    "load_dataset_as_adjacency",
+    "list_available_datasets",
+    # utilities
+    "get_backend_info",
     "BackendConfig",
     "get_optimal_backend",
     "check_cuda_availability",
     "state_from_jax",
+    # benchmarks
+    "run_benchmark",
+    "benchmark_correlations",
+    "run_influence_benchmark",
 ]

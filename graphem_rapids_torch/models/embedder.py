@@ -83,7 +83,9 @@ class GraphEmbedderTorch:
     knn_compute_dtype : accepted for API compatibility; it applies to the
         'approx' strategy only, which is not ported yet.
     knn_recall_target : float, default=0.95 — sizes the bin-fold bins.
-    init : 'auto' | 'scipy' | 'random' (ops/laplacian.py).
+    init : 'auto' | 'scipy' | 'chebyshev' | 'lobpcg' | 'random'
+        (ops/laplacian.py). 'auto' is host ARPACK below 500,000 vertices
+        and the Chebyshev tier on the engine's device from there on.
     fused_midpoints : bool, optional — build the kNN refs from the spring
         gather; None enables it for 'binfold' while the ref slot count
         stays within 4E.
@@ -235,7 +237,8 @@ class GraphEmbedderTorch:
             self.logger.info("kNN batch size: %d", self.batch_size)
 
         init_np = spectral_init(adjacency, self.n_components, method=init,
-                                seed=seed)
+                                seed=seed, device=self.device,
+                                mesh=self._init_mesh())
         if self._perm is not None:
             init_np = init_np[self._perm]
         self._positions = torch.as_tensor(init_np, dtype=self.dtype,
@@ -245,6 +248,10 @@ class GraphEmbedderTorch:
     # ------------------------------------------------------------------ #
     # construction helpers
     # ------------------------------------------------------------------ #
+
+    def _init_mesh(self):
+        """The mesh the Chebyshev init row-shards over: none here."""
+        return None
 
     def _validate_adjacency(self, adjacency):
         """Validate and convert to CSR."""
@@ -553,6 +560,19 @@ class GraphEmbedderTorch:
             )
         else:
             self._generator.manual_seed(self._base_seed + self._iteration)
+
+    def display_layout(self, edge_width=1, node_size=3, node_colors=None):
+        """Plotly 2D/3D scatter of the embedding and its edges; requires
+        plotly and raises ImportError with guidance without it."""
+        from ..visualization import plot_layout
+
+        plot_layout(
+            self.positions,
+            self._edges_np,
+            edge_width=edge_width,
+            node_size=node_size,
+            node_colors=node_colors,
+        )
 
     def __repr__(self):
         return (

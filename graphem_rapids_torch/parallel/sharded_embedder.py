@@ -9,11 +9,13 @@ Every rank builds the same engine from the same graph: the same tables,
 the same seed (drawn on rank 0 and broadcast when none is given), rank 0's
 initial positions, and a generator seeded alike, so every rank draws the
 same sample each iteration, as the JAX tier's replicated key does, and the
-positions stay bit-equal across ranks. The step broadcasts rank 0's new
-positions each iteration; ``replica_gap`` is the largest gap that closed,
-and ``run_layout`` raises at a block's end when it exceeds
-REPLICA_GAP_LIMIT: ranks that drew different samples or started apart are
-an error, not rounding for the broadcast to absorb.
+positions stay bit-equal across ranks. The Chebyshev init ('chebyshev',
+and 'auto' from 500,000 vertices) row-shards its SpMV over the mesh's
+ranks. The step broadcasts rank 0's new positions each iteration;
+``replica_gap`` is the largest gap that closed, and ``run_layout`` raises at
+a block's end when it exceeds REPLICA_GAP_LIMIT: ranks that drew different
+samples or started apart are an error, not rounding for the broadcast to
+absorb.
 """
 
 import numpy as np
@@ -68,6 +70,10 @@ class ShardedGraphEmbedder(GraphEmbedderTorch):
 
     def _resolved_strategy(self):
         return "sharded"
+
+    def _init_mesh(self):
+        """The Chebyshev init row-shards its SpMV over the engine's mesh."""
+        return self.mesh
 
     def _build_step(self, edges_engine):
         """Pad the edge list to the mesh and bind the sharded step."""

@@ -209,8 +209,27 @@ def test_spectral_init_tiers_match_jax():
     k4 = sp.csr_matrix(np.ones((4, 4)) - np.eye(4))
     np.testing.assert_array_equal(t_spectral_init(k4, 3, method="scipy", seed=1),
                                   j_spectral_init(k4, 3, method="scipy", seed=1))
-    for method in ("chebyshev", "lobpcg"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_spectral_init(adj, 3, method=method)
-    with pytest.raises(NotImplementedError, match="chebyshev"):
-        t_spectral_init(adj, 3, method="auto", device_threshold=100)
+    # the device tiers: Chebyshev from the JAX tier's start block spans
+    # the same subspace; 'auto' from the threshold on is that tier;
+    # LOBPCG (another start) spans eigsh's; without a card and without
+    # device='cpu' they raise instead of tiering down
+    cheb = t_spectral_init(adj, 3, method="chebyshev", seed=4, device="cpu")
+    assert cheb.dtype == np.float32 and cheb.shape == (150, 3)
+    assert _alignment(cheb, j_spectral_init(adj, 3, method="chebyshev",
+                                            seed=4)) > 0.999
+    np.testing.assert_array_equal(
+        t_spectral_init(adj, 3, method="auto", seed=4, device="cpu",
+                        device_threshold=100), cheb)
+    eigsh = j_spectral_init(adj, 3, method="scipy", seed=4)
+    assert _alignment(t_spectral_init(adj, 3, method="lobpcg", seed=4,
+                                      device="cpu"), eigsh) > 0.95
+    if not torch.cuda.is_available():
+        for method in ("chebyshev", "lobpcg"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                t_spectral_init(adj, 3, method=method)
+
+
+def _alignment(X, Y):
+    """Smallest canonical correlation between the column spans."""
+    return np.linalg.svd(np.linalg.qr(X)[0].T @ np.linalg.qr(Y)[0],
+                         compute_uv=False).min()

@@ -1,10 +1,10 @@
 """The PyTorch port stands alone: no JAX, no JAX package, no networkx/pandas.
 
-The card's machine has PyTorch but no JAX, networkx, pandas or ndlib, so
-neither graphem_rapids_torch nor chip_smoke.py may import them, directly or
-through the JAX package. ndlib (with networkx) is imported only inside
-``ndlib_estimated_influence``, when it is called, so the import-time check
-forbids it and the source scan allows it only there.
+The card's machine has PyTorch but no JAX, networkx, pandas, plotly or
+ndlib, so neither graphem_rapids_torch nor chip_smoke.py may import them,
+directly or through the JAX package. The optional packages are imported only
+inside the LAZY_IMPORTS functions, when they are called, so the import-time
+check forbids them and the source scan allows them only there.
 """
 
 import ast
@@ -25,7 +25,7 @@ PORT_FILES = sorted((REPO / "graphem_rapids_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"
 ]
 FORBIDDEN = ("jax", "jaxlib", "graphem_rapids_tpu", "networkx", "pandas",
-             "ndlib")
+             "plotly", "ndlib")
 
 _spec = importlib.util.spec_from_file_location(
     "lintmod", REPO / "scripts" / "lint.py"
@@ -34,8 +34,17 @@ lintmod = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(lintmod)
 
 
-# the one function allowed to import optional packages, and which
-LAZY_IMPORTS = {"ndlib_estimated_influence": ("ndlib", "networkx")}
+# the functions allowed to import optional packages, and which: each
+# imports them when called, never when its module is imported
+LAZY_IMPORTS = {
+    "ndlib_estimated_influence": ("ndlib", "networkx"),
+    "_pandas": ("pandas",),
+    "_plotly": ("plotly",),
+    "load_as_networkx": ("networkx",),
+    "load_dataset_as_networkx": ("networkx",),
+    "compute_centralities": ("networkx",),
+    "_adjacency_to_nx": ("networkx",),
+}
 
 
 def _lazy_import_nodes(tree):
@@ -85,7 +94,9 @@ def test_import_pulls_in_no_jax():
         "graphem_rapids_torch.utils.memory_management, "
         "graphem_rapids_torch.utils.profiling, "
         "graphem_rapids_torch.parallel.ring_binfold, "
-        "graphem_rapids_torch.parallel.sharded_step\n"
+        "graphem_rapids_torch.parallel.sharded_step, "
+        "graphem_rapids_torch.generators, graphem_rapids_torch.datasets, "
+        "graphem_rapids_torch.visualization, graphem_rapids_torch.benchmark\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

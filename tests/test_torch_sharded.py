@@ -13,8 +13,10 @@ rank's own update must equal rank 0's before the broadcast that makes
 positions equal (a replica gap of exactly 0 on the CPU), run_layout must
 draw one sample on every rank, and ranks given different samples must be
 caught. The 'ring_pallas' neighbour sets (``_debug_knn``) must equal JAX's,
-whose Pallas ring runs in interpret mode off the TPU. One-rank meshes,
-without a process group, run in the test process.
+whose Pallas ring runs in interpret mode off the TPU. The row-sharded
+Chebyshev init must equal the single-rank runner and JAX's mesh modulo
+column signs. One-rank meshes, without a process group, run in the test
+process.
 """
 
 import os
@@ -90,9 +92,29 @@ SAME_AS = {
 # ring_pallas _debug_knn cases: (graph, fused refs)
 KNN_CASES = {"knn_unfused": ("regular", False), "knn_fused": ("regular", True)}
 CKPT_VARIANT = "hub_binned_fused"
+# row-sharded Chebyshev init cases: (graph, n_components); the graphs of
+# tests/test_spectral_chebyshev.py, 1999 leaving a padded tail on 4 ranks
+CHEB_CASES = {
+    "cheb_regular_2000": ("regular_2000", 3),
+    "cheb_regular_1999": ("regular_1999", 3),
+    "cheb_overflow": ("star_ring_chords", 2),
+}
 # two ranks, where each rank's left and right neighbour are the same peer
 TWO_RANK_VARIANTS = ("flat_all_gather", "flat_ring", "hub_binned_fused",
                      "hub_binned_fused_all_to_all")
+
+
+def cheb_graph(name):
+    """A Chebyshev case's graph (networkx, as the JAX tests build it)."""
+    import networkx as nx
+
+    if name == "star_ring_chords":
+        G = nx.star_graph(800)
+        G.add_edges_from((i, (i + 1) % 801) for i in range(1, 800))
+        G.add_edges_from((i, (i + 37) % 801) for i in range(1, 800))
+    else:
+        G = nx.random_regular_graph(8, int(name.split("_")[1]), seed=0)
+    return sp.csr_matrix(nx.adjacency_matrix(G, dtype=int))
 
 
 def start_positions(n):
@@ -213,6 +235,16 @@ def worker(rank, world, store, out):
             edges_p).long(), torch.from_numpy(valid),
             torch.from_numpy(sampled), ops)
         res[name] = knn_idx.numpy()
+    if world == WORLD:
+        from graphem_rapids_torch.ops.laplacian import _spectral_chebyshev
+
+        for name, (graph, k) in CHEB_CASES.items():
+            res[name] = _spectral_chebyshev(cheb_graph(graph), k, seed=0,
+                                            mesh=mesh)
+        emb = ShardedGraphEmbedder(cheb_graph("regular_1000"), mesh=mesh,
+                                   n_components=3, seed=0, verbose=False,
+                                   init="chebyshev", sample_size=64)
+        res["cheb_embedder"] = emb.positions
     np.savez(Path(out) / f"rank{rank}.npz", **res)
     torch.distributed.destroy_process_group()
 
@@ -285,8 +317,9 @@ def test_gloo_matches_jax_mesh(gloo, name):
 
 @pytest.mark.fast
 @pytest.mark.parametrize("name", list(VARIANTS) + list(KNN_CASES)
+                         + list(CHEB_CASES)
                          + ["ckpt/resumed", "run_layout",
-                            "run_layout/next_sample"])
+                            "run_layout/next_sample", "cheb_embedder"])
 def test_gloo_ranks_bit_equal(gloo, name):
     for r in range(1, WORLD):
         np.testing.assert_array_equal(gloo[r][name], gloo[0][name])
@@ -346,6 +379,54 @@ def test_gloo_ring_pallas_matches_jax(gloo, case):
     JAX's ring_pallas on the same positions and sample."""
     np.testing.assert_array_equal(np.sort(gloo[0][case], axis=1),
                                   _jax_ring_pallas(case, WORLD))
+
+
+def _assert_match_modulo_signs(X, Y, atol):
+    for c in range(Y.shape[1]):
+        d = min(np.abs(X[:, c] - Y[:, c]).max(),
+                np.abs(X[:, c] + Y[:, c]).max())
+        assert d < atol, f"column {c}: {d}"
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("case", list(CHEB_CASES))
+@pytest.mark.parametrize("against", ["single_rank", "jax_mesh"])
+def test_gloo_chebyshev_row_sharded(gloo, case, against):
+    """The row-sharded Chebyshev init on 4 ranks (one tiled all_gather per
+    matvec) against the port's single-rank runner and JAX's 4-device mesh,
+    from the same start block: equal modulo column signs at JAX's own
+    atol=1e-4 (tests/test_spectral_chebyshev.py), the padded tail and the
+    replicated overflow plan included."""
+    graph, k = CHEB_CASES[case]
+    A = cheb_graph(graph)
+    if against == "single_rank":
+        from graphem_rapids_torch.ops.laplacian import _spectral_chebyshev
+
+        ref = _spectral_chebyshev(A, k, seed=0)
+    else:
+        pytest.importorskip("jax")
+        from graphem_rapids_tpu.ops.laplacian import _spectral_chebyshev
+        from graphem_rapids_tpu.parallel import make_mesh
+
+        ref = _spectral_chebyshev(A, k, seed=0, mesh=make_mesh(WORLD))
+    _assert_match_modulo_signs(gloo[0][case], ref, atol=1e-4)
+
+
+@pytest.mark.fast
+def test_gloo_sharded_embedder_chebyshev_init(gloo):
+    """ShardedGraphEmbedder(init='chebyshev') on 4 ranks starts from a
+    spectral layout aligned with host eigsh (JAX's :198-213 case)."""
+    from graphem_rapids_torch.ops.laplacian import (
+        _normalized_laplacian,
+        _spectral_scipy,
+    )
+
+    pos = gloo[0]["cheb_embedder"]
+    assert pos.shape == (1000, 3) and np.isfinite(pos).all()
+    Xs = _spectral_scipy(_normalized_laplacian(cheb_graph("regular_1000")),
+                         3, seed=0)
+    Q = np.linalg.qr(pos)[0].T @ np.linalg.qr(Xs)[0]
+    assert np.linalg.svd(Q, compute_uv=False).min() > 0.95
 
 
 @pytest.mark.fast
