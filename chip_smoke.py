@@ -4,8 +4,9 @@
     python3 chip_smoke.py               # the phases below, one JSON line each
     python3 chip_smoke.py --profile     # also a torch.profiler breakdown of
                                         # 10 iterations of each main-path,
-                                        # quick-start and sharded graph, and
-                                        # of one IC call, and the sharded
+                                        # quick-start and sharded graph (with
+                                        # the host's launch calls), and of
+                                        # one IC call, and the sharded
                                         # diagnostics of phases 11 and 13
     python3 chip_smoke.py --multi-card  # phases 1, 2 and 13 only (a host
                                         # with several cards)
@@ -49,7 +50,12 @@ Phases:
    block of 8.2 GB, and an out-of-memory there is reported, not raised);
 5. main path, 100K vertices: GraphEmbedderTorch on a random 8-regular
    graph (union of four random Hamiltonian cycles, seed 0), the force
-   parameters of bench.py, scipy spectral init, then run_layout(50);
+   parameters of bench.py, scipy spectral init, then run_layout(50). On the
+   card run_layout replays one captured iteration as a CUDA graph (the
+   warm-up runs the first iteration eagerly and captures); the launch
+   counts are the replays', and the K1 shapes are recorded from the
+   warm-up on, so that the capture's shapes (the replayed ones) are
+   checked;
 6. main path, 1M vertices: ring + 3M random chords as in bench.py,
    init='auto', which is the Chebyshev tier on the card from 500,000
    vertices (main_setup prints init_s, the Chebyshev seconds, the Ritz
@@ -65,8 +71,8 @@ Phases:
 8. greedy: greedy_seed_selection on a small hub graph, the same seeds on
    the card and on the CPU;
 9. card against CPU: a small graph, 5 injected-sample steps with
-   knn_strategy='binfold' and 'pallas' on the card and on the CPU,
-   allclose;
+   knn_strategy='binfold', 'pallas' and 'approx', and 'binfold' with
+   ref_order='slot', on the card and on the CPU, allclose;
 10. K3 against its plain version: one ring hop (the fold of a rank's ref
     tile, ids rank * R_pad + p, and the min-merge with the carry) by the
     kernel and by ring_fold_reference, at hop 0 and at later hops with a
@@ -138,7 +144,23 @@ Phases:
     iteration, at the shape phase 3 checked), Spearman(radius, degree) >=
     0.5; the vendored karate
     graph (load_dataset_as_adjacency, a temporary data directory) through
-    create_graphem and run_layout(30), Spearman > 0.4.
+    create_graphem and run_layout(30), Spearman > 0.4;
+16. graph against eager, run after phase 9: on phase 9's graph with
+    knn_strategy='binfold' and on the 100K graph (K1), after one iteration
+    each, 5 iterations by graph replay against 5 of the eager loop from the
+    same generator state and start, in deterministic mode: the samples of
+    every iteration and the positions must be bit-equal;
+17. approx: the 100K and the 1M graph with n_neighbors=48 (k+1 = 49 >
+    K1's MAX_K) and init='random' must resolve 'approx'; each prints the
+    fused-refs choice, whether the one-shot pass fits its budget,
+    run_layout(50) ms/iter, the peak memory from the warm-up on (a replay
+    allocates nothing) and the memory reserved, launches no K1 or K2, and
+    on one iteration's queries recalls all of knn_exact's neighbours (by
+    distance: within the exact k-th distance) and prints the one-shot
+    pass's peak over its (S, E) matrix;
+18. slot: the 100K main path with ref_order='slot' (init='random'),
+    run_layout(50) as phase 5, one K1 launch per iteration, at shapes
+    phase 3 checked.
 
 Each main-path, quick-start, sharded and toolkit phase zeroes the kernels'
 launch counts just before its timed run and reads them just after. A
@@ -167,6 +189,10 @@ ITERS = 50
 # modulo sign (JAX's atol for its sharded runner against the single one)
 SPECTRAL_BLOCK_ATOL = 1e-4
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# the host's CUDA calls that put work on a stream, counted by --profile
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemsetAsync",
+               "cudaMemcpyAsync")
 
 
 class SpectralLog(logging.Handler):
@@ -677,11 +703,14 @@ def profile_call(phase, label, warm, fn, untraced_ms, per):
     ]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3 / per
+    host = {ev.key: ev.count / per for ev in prof.key_averages()
+            if ev.key in LAUNCH_APIS}
     emit(phase, graph=label, per=per,
          device_ms_per_iter=busy_ms,
          untraced_ms_per_iter=untraced_ms,
          device_busy_share=busy_ms / untraced_ms,
          kernels_per_iter=sum(r[2] for r in rows) / per,
+         host_launches_per_iter=sum(host.values()), host_launch_calls=host,
          top=[{"kernel": key[:90], "ms_per_iter": us / 1e3 / per,
                "calls_per_iter": c / per}
               for us, key, c in rows[:12]])
@@ -702,6 +731,8 @@ def k1_shapes(bf, checked, label):
         yield shapes
     finally:
         bf.binfold_bins_cuda = launch
+    if not shapes:
+        raise AssertionError(f"{label}: K1 never launched")
     if not shapes <= checked:
         raise AssertionError(f"{label}: K1 ran at {sorted(shapes - checked)}"
                              ", which phase 3 did not check")
@@ -741,18 +772,21 @@ def chebyshev_fields(log, label, expected):
 
 
 def phase_main(grt, bf, label, adj, expect_table, init, warmup, profile,
-               log, checked):
-    """Phases 5/6: construct, warm up, then the timed run_layout."""
+               log, checked, **engine_kw):
+    """Phases 5/6 (and 18 with ref_order='slot'): construct, warm up (the
+    first iteration, then the capture of the replayed graph), then the
+    timed run_layout."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     emb = grt.GraphEmbedderTorch(adj, n_components=3, seed=0, verbose=False,
-                                 init=init, **FORCE_PARAMS)
+                                 init=init, **FORCE_PARAMS, **engine_kw)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     device_tier = init == "chebyshev" or (init == "auto"
                                           and emb.n >= 500_000)
     emit("main_setup", graph=label, n=emb.n, E=emb.n_edges,
-         table=emb.table_kind, strategy=emb._strategy,
+         table=emb.table_kind, ref_order=emb.ref_order,
+         strategy=emb._strategy,
          fused_refs=emb._fused_refs_active,
          refs=int(len(emb._nb["ref_edge"])),
          overflow_pairs=int(len(emb._nb["overflow"])), init=init,
@@ -764,20 +798,25 @@ def phase_main(grt, bf, label, adj, expect_table, init, warmup, profile,
                              f"expected {expect_table}")
     if emb._strategy != "binfold" or not emb._fused_refs_active:
         raise AssertionError(f"{label}: main path must take fused binfold")
-    emb.run_layout(warmup, block_size=warmup)
-
-    bf.knn_binfold.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    with k1_shapes(bf, checked, label):
+    # the capture's K1 shapes are the replayed ones: record from warm-up on
+    with k1_shapes(bf, checked, label) as shapes:
+        emb.run_layout(warmup, block_size=warmup)
+        if emb._graph is None:
+            raise AssertionError(f"{label}: run_layout did not capture")
+        bf.knn_binfold.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         pos = emb.run_layout(ITERS, block_size=10)
         dt = time.perf_counter() - t0
-    launches = bf.knn_binfold.launches
+        launches = bf.knn_binfold.launches
     std = pos.std(axis=0, ddof=1)
-    emit("main_run", graph=label, iters=ITERS, seconds=dt,
+    emit("main_run", graph=label, ref_order=emb.ref_order, iters=ITERS,
+         binfold_shapes=sorted(shapes), seconds=dt,
          ms_per_iter=dt / ITERS * 1e3, edges_per_s=emb.n_edges * ITERS / dt,
          binfold_launches=launches,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+         # the graph's pool holds the step's temporaries between replays
+         reserved_gib=torch.cuda.memory_reserved() / 2**30,
          finite=bool(np.isfinite(pos).all()), std=std.tolist())
     if launches != ITERS:
         raise AssertionError(f"{label}: {launches} kernel launches in "
@@ -791,11 +830,11 @@ def phase_main(grt, bf, label, adj, expect_table, init, warmup, profile,
     return launches
 
 
-def phase_card_vs_cpu(grt, strategy):
+def phase_card_vs_cpu(grt, strategy, ref_order="row"):
     """Phase 9: the same injected-sample steps on the card and the CPU."""
     adj = regular_union_graph(2000, cycles=3, seed=1)
     kw = dict(n_components=3, seed=0, verbose=False, init="scipy",
-              knn_strategy=strategy, **FORCE_PARAMS)
+              knn_strategy=strategy, ref_order=ref_order, **FORCE_PARAMS)
     gpu = grt.GraphEmbedderTorch(adj, device="cuda", **kw)
     cpu = grt.GraphEmbedderTorch(adj, device="cpu", **kw)
     rng = np.random.default_rng(5)
@@ -806,10 +845,154 @@ def phase_card_vs_cpu(grt, strategy):
     a, b = gpu.positions, cpu.positions
     err = float(np.abs(a - b).max())
     ok = bool(np.allclose(a, b, rtol=1e-4, atol=1e-5))
-    emit("card_vs_cpu", strategy=strategy, n=gpu.n, E=gpu.n_edges, steps=5,
-         max_abs_err=err, rtol=1e-4, atol=1e-5, allclose=ok)
-    if not ok:
-        raise AssertionError(f"card and CPU trajectories disagree ({strategy})")
+    emit("card_vs_cpu", strategy=strategy, ref_order=ref_order,
+         resolved=gpu._strategy, fused_refs=gpu._fused_refs_active, n=gpu.n,
+         E=gpu.n_edges, steps=5, max_abs_err=err, rtol=1e-4, atol=1e-5,
+         allclose=ok)
+    if not ok or gpu._strategy != strategy:
+        raise AssertionError(f"card and CPU trajectories disagree ({strategy}"
+                             f", {ref_order})")
+
+
+def eager_steps(emb, n):
+    """``n`` iterations of the eager loop (the CPU's) on ``emb``, drawn
+    from its generator; returns each iteration's sample."""
+    out = []
+    for _ in range(n):
+        s = emb._sample()
+        out.append(s.cpu().numpy())
+        emb._positions = emb._raw_step(emb._positions, s)
+    return out
+
+
+def phase_graph_vs_eager(grt, label, adj, iters=5, **engine_kw):
+    """Phase 16: ``iters`` replayed iterations against as many eager ones
+    from the same generator state and the same start, both engines on the
+    card, in deterministic mode (as phase 12): bit-equal samples every
+    iteration and bit-equal positions."""
+    kw = dict(n_components=3, seed=0, verbose=False, init="random",
+              **FORCE_PARAMS, **engine_kw)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        replayed = grt.GraphEmbedderTorch(adj, device="cuda", **kw)
+        eager = grt.GraphEmbedderTorch(adj, device="cuda", **kw)
+        replayed.run_layout(1)  # the eager first iteration, then the capture
+        eager_steps(eager, 1)
+        samples_equal, positions_equal, err = True, True, 0.0
+        for _ in range(iters):
+            replayed.run_layout(1)
+            sample = eager_steps(eager, 1)[0]
+            samples_equal &= bool(np.array_equal(
+                replayed._graph_sample.cpu().numpy(), sample))
+            a, b = replayed.positions, eager.positions
+            positions_equal &= bool(np.array_equal(a, b))
+            err = max(err, float(np.abs(a - b).max()))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    emit("graph_vs_eager", graph=label, n=replayed.n, E=replayed.n_edges,
+         strategy=replayed._strategy, captured=replayed._graph is not None,
+         iters=iters, samples_bit_equal=samples_equal,
+         positions_bit_equal=positions_equal, max_abs_err=err)
+    if replayed._graph is None or eager._graph is not None:
+        raise AssertionError(f"{label}: the replayed engine must capture, "
+                             "the eager one not")
+    if not (samples_equal and positions_equal):
+        raise AssertionError(f"{label}: replay differs from the eager loop")
+
+
+def step_knn_inputs(emb, sampled):
+    """The (queries, refs) that the engine's kNN takes for ``sampled`` at
+    its current positions (row-order tables)."""
+    from graphem_rapids_torch.ops import forces
+
+    pos, ops, nb = emb._positions, emb._ops, emb._nb
+    if not emb._fused_refs_active:
+        e = ops["edges"]
+        mid = (pos[e[:, 0]] + pos[e[:, 1]]) / 2.0
+        return mid[sampled.long()], mid
+    if "buckets" in nb:
+        refs = forces.midpoint_refs_binned(
+            pos, [pos[t] for t in ops["tables"]], nb["buckets"],
+            ops["ref_valid"], ops["overflow_lt"])
+    else:
+        refs = forces.midpoint_refs_from_gathered(
+            pos, pos[ops["table"]], nb["ref_cap"], ops["ref_valid"],
+            ops["overflow_lt"])
+    return refs[ops["edge_ref"][sampled.long()]], refs
+
+
+def phase_approx(grt, bf, kp, label, adj, init, warmup):
+    """Phase 17: n_neighbors=48 (k+1 = 49 > the bin fold's MAX_K), so the
+    engine resolves 'approx'; run_layout(50) under replay with no K1 or
+    K2 launch, then one iteration's queries against knn_exact."""
+    from graphem_rapids_torch.ops import knn as tk
+
+    params = dict(FORCE_PARAMS, n_neighbors=48)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    emb = grt.GraphEmbedderTorch(adj, n_components=3, seed=0, verbose=False,
+                                 init=init, **params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    refs = (int(len(emb._nb["ref_edge"])) if emb._fused_refs_active
+            else emb.n_edges)
+    budget = tk.oneshot_budget_bytes(emb.device)
+    emit("approx_setup", graph=label, n=emb.n, E=emb.n_edges,
+         table=emb.table_kind, strategy=emb._strategy,
+         fused_refs=emb._fused_refs_active, refs=refs,
+         oneshot=emb.sample_size * refs * 4 <= budget,
+         oneshot_budget_bytes=budget, init=init, init_s=init_s)
+    if emb._strategy != "approx":
+        raise AssertionError(f"{label}: n_neighbors=48 must resolve 'approx'"
+                             f", got {emb._strategy}")
+    # the peak from the warm-up on: a replay allocates nothing, so the
+    # eager first iteration and the capture hold the one-shot pass's peak
+    torch.cuda.reset_peak_memory_stats()
+    emb.run_layout(warmup, block_size=warmup)
+    bf.knn_binfold.launches = kp.knn_pallas.launches = 0
+    t0 = time.perf_counter()
+    pos = emb.run_layout(ITERS, block_size=10)
+    dt = time.perf_counter() - t0
+    k1, k2 = bf.knn_binfold.launches, kp.knn_pallas.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.memory_reserved() / 2**30
+    # one iteration's queries: the approx tier against knn_exact; a
+    # neighbour counts as recalled when its distance is within the exact
+    # k-th distance (ties among equal distances cannot lose recall)
+    q, r = step_knn_inputs(emb, emb._sample())
+    k = emb._k_eff
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, av = tk.knn(q, r, k, strategy="approx", chunk_size=emb.batch_size,
+                   compute_dtype=emb.knn_compute_dtype)
+    torch.cuda.synchronize()
+    # the one-shot pass's peak over its (S, E_pad) float32 matrix: what
+    # ONESHOT_PEAK_FACTOR stands for
+    e_pad = -(-r.shape[0] // tk.ONESHOT_ROW_ALIGN) * tk.ONESHOT_ROW_ALIGN
+    factor = ((torch.cuda.max_memory_allocated() - base)
+              / (q.shape[0] * e_pad * 4))
+    _, ev = tk.knn_exact(q, r, k)
+    recall = float((av <= ev[:, -1:]).float().mean())
+    std = pos.std(axis=0, ddof=1)
+    emit("approx_run", graph=label, iters=ITERS, seconds=dt,
+         ms_per_iter=dt / ITERS * 1e3, edges_per_s=emb.n_edges * ITERS / dt,
+         peak_mem_gib=peak, reserved_gib=reserved,
+         oneshot_peak_factor=factor,
+         binfold_launches=k1, pallas_launches=k2, k=k,
+         recall_vs_exact=recall,
+         distances_equal_exact=bool(torch.equal(av, ev)),
+         finite=bool(np.isfinite(pos).all()), std=std.tolist())
+    if (k1, k2) != (0, 0):
+        raise AssertionError(f"{label}: approx launched K1 {k1} / K2 {k2} "
+                             "times")
+    if recall != 1.0:
+        raise AssertionError(f"{label}: approx recall {recall} against "
+                             "knn_exact")
+    if pos.shape != (emb.n, 3) or not np.isfinite(pos).all():
+        raise AssertionError(f"{label}: positions not finite")
+    if not np.allclose(std, 1.0, atol=1e-3):
+        raise AssertionError(f"{label}: per-axis std {std} is not ~1")
 
 
 def phase_kernel_k3(rb, bf, fp32_instr_per_s, build_report):
@@ -1510,8 +1693,17 @@ def main(argv):
     k2_launches += phase_quickstart(grt, bf, kp, "ring_chords_1m", adj1m,
                                     "random", warmup=5, profile=profile)
     phase_greedy(grt)
-    for strategy in ("binfold", "pallas"):
+    for strategy in ("binfold", "pallas", "approx"):
         phase_card_vs_cpu(grt, strategy)
+    phase_card_vs_cpu(grt, "binfold", ref_order="slot")
+    phase_graph_vs_eager(grt, "regular_2000", regular_union_graph(
+        2000, cycles=3, seed=1), knn_strategy="binfold")
+    phase_graph_vs_eager(grt, "random_8_regular_100k", adj100k)
+    phase_approx(grt, bf, kp, "random_8_regular_100k", adj100k, "random", 5)
+    phase_approx(grt, bf, kp, "ring_chords_1m", adj1m, "random", 3)
+    launches += phase_main(grt, bf, "random_8_regular_100k_slot", adj100k,
+                           "flat", "random", warmup=5, profile=profile,
+                           log=log, checked=k1["checked"], ref_order="slot")
 
     with tempfile.TemporaryDirectory() as tmp:
         grt.distributed_init(backend="nccl", init_method=f"file://{tmp}/store",

@@ -104,7 +104,8 @@ def create_graphem(adjacency, n_components=2, backend=None, mesh=None,
     adjacency : array-like or scipy.sparse matrix, square.
     n_components : int, default=2 — embedding dimensionality.
     backend : str, optional — force a strategy: 'auto' | 'exact' |
-        'chunked' | 'binfold' | 'pallas' | 'sharded' (legacy aliases 'pytorch',
+        'chunked' | 'approx' | 'binfold' | 'pallas' | 'sharded' (legacy
+        aliases 'pytorch',
         'cuda', 'gpu', 'tpu', 'cpu', and 'cuvs'/'rapids', which select
         'pallas'). GRAPHEM_BACKEND, GRAPHEM_PREFER_GPU (or
         GRAPHEM_PREFER_TPU), GRAPHEM_MEMORY_LIMIT and GRAPHEM_VERBOSE are

@@ -7,16 +7,20 @@ with the same constructor surface. Each iteration (``_raw_step``):
 2. spring forces from the neighbor-table gather, plus hub overflow;
 3. edge-midpoint kNN refs fused from the same gather;
 4. (k+1)-NN of the sampled midpoints against all midpoints, self column
-   dropped; above EXACT_MAX_REFS on CUDA this is the bin-fold kernel,
-   and knn_strategy='pallas' takes the exact tiled kernel;
+   dropped; above EXACT_MAX_REFS on CUDA this is the bin-fold kernel
+   (the 'approx' tier outside its gates), and knn_strategy='pallas'
+   takes the exact tiled kernel;
 5. intersection repulsion;
 6. add the forces, center, divide by the ddof=1 std.
 
-PyTorch runs eagerly, so the step is a plain function on tensors, and
-``run_layout`` is a Python loop that synchronizes with the device once per
-block. Randomness comes from an explicit ``torch.Generator`` seeded from
-``seed``; its numbers differ from jax.random's, so parity tests inject the
-sample indices (``update_positions(sample_indices=...)``).
+The step is a plain function on tensors. On a CUDA device ``run_layout``
+runs it as JAX's ``multi_step`` runs its fused blocks: one iteration
+(the sample, then the step into a static positions buffer) is captured as
+a CUDA graph and replayed for every iteration, with no host sync until the
+positions are read (or a progress bar is shown). On the CPU the same loop
+runs eagerly. Randomness comes from an explicit ``torch.Generator`` seeded
+from ``seed``; its numbers differ from jax.random's, so parity tests inject
+the sample indices (``update_positions(sample_indices=...)``).
 """
 
 import logging
@@ -27,6 +31,7 @@ import torch
 
 from ..convert import state_from_jax
 from ..ops import knn_binfold as bf
+from ..ops import knn_pallas as kp
 from ..ops.forces import (
     build_neighbor_table,
     build_neighbor_table_binned,
@@ -35,9 +40,10 @@ from ..ops.forces import (
     midpoint_refs_from_gathered,
     spring_forces_binned,
     spring_forces_from_gathered,
+    spring_refs_binned_slotwise,
+    spring_refs_slotwise,
 )
-from ..ops.knn import EXACT_MAX_REFS, knn
-from ..ops.knn_pallas import MAX_K as PALLAS_MAX_K
+from ..ops.knn import EXACT_MAX_REFS, knn, oneshot_budget_bytes
 from ..ops.laplacian import spectral_init
 from ..ops.sampling import sample_indices
 from ..utils.memory_management import get_optimal_chunk_size
@@ -45,6 +51,11 @@ from ..utils.memory_management import get_optimal_chunk_size
 logger = logging.getLogger(__name__)
 
 EPS = 1e-6
+
+# The kernel wrappers whose ``launches`` count launches on the card: K1 and
+# K2, the kernels a single-card step can launch. A replay launches what
+# the capture recorded, so the engine adds the capture's count per replay.
+_COUNTED_KERNELS = (bf.knn_binfold, kp.knn_pallas)
 
 
 def resolve_device(device):
@@ -74,24 +85,33 @@ class GraphEmbedderTorch:
     batch_size : int, optional — ref tile of the 'chunked' kNN strategy;
         None derives it from the device budget with get_optimal_chunk_size,
         as GraphEmbedderTPU does.
-    knn_strategy : 'auto' | 'exact' | 'chunked' | 'binfold' | 'pallas'.
-        'auto' is exact up to EXACT_MAX_REFS edges; beyond, CUDA takes the
-        bin-fold kernel while its gates hold (dim <= 8, k+1 <= 48, edges
-        below MAX_REFS_SEGMENTED) and 'chunked' otherwise, the CPU
-        'chunked'. 'pallas' is the exact tiled kernel (k+1 <= 128); 'auto'
-        never selects it. 'approx' is not ported yet.
-    knn_compute_dtype : accepted for API compatibility; it applies to the
-        'approx' strategy only, which is not ported yet.
+    knn_strategy : 'auto' | 'exact' | 'chunked' | 'approx' | 'binfold' |
+        'pallas'. 'auto' is exact up to EXACT_MAX_REFS edges; beyond, CUDA
+        takes the bin-fold kernel while its gates hold (dim <= 8,
+        k+1 <= 48, edges below MAX_REFS_SEGMENTED) and 'approx' otherwise,
+        the CPU 'chunked'. 'approx' is the JAX package's tier as it runs
+        off a TPU: one-shot distances and an exact top-k while they fit
+        ops/knn.py's oneshot_budget_bytes, the chunked scan beyond.
+        'pallas' is the exact tiled kernel (k+1 <= 128); 'auto' never
+        selects it.
+    knn_compute_dtype : torch dtype or None — the dtype of the 'approx'
+        tier's one-shot distances (e.g. torch.bfloat16); None is float32,
+        as the JAX package's default off a TPU.
     knn_recall_target : float, default=0.95 — sizes the bin-fold bins.
     init : 'auto' | 'scipy' | 'chebyshev' | 'lobpcg' | 'random'
         (ops/laplacian.py). 'auto' is host ARPACK below 500,000 vertices
         and the Chebyshev tier on the engine's device from there on.
     fused_midpoints : bool, optional — build the kNN refs from the spring
-        gather; None enables it for 'binfold' while the ref slot count
-        stays within 4E.
+        gather; None enables it for 'binfold' and 'approx' while the ref
+        slot count stays within 4E (and, for 'approx', while S x the ref
+        slot count x 4 bytes fits oneshot_budget_bytes).
     binned_table : bool, optional — degree-binned tables; None lets the
         bucket cost model decide, True forces them, False keeps the flat one.
-    ref_order : None or 'row'. 'slot' is not ported yet.
+    ref_order : None | 'row' | 'slot' — the enumeration of the kNN ref
+        space (ops/forces.py build_neighbor_table). None is 'row', as the
+        JAX package chooses off a TPU; 'slot' builds slot-major tables and
+        runs the slotwise spring/ref ops, so the kNN sees the refs in the
+        JAX package's slot order.
     packed_gather : accepted; a value-identical no-op here.
     memory_efficient, verbose, logger_instance : as in GraphEmbedderTPU.
     seed : int, optional — seeds the sampling generator and the init.
@@ -164,14 +184,15 @@ class GraphEmbedderTorch:
             )
         if sample_size <= 0:
             raise ValueError(f"sample_size must be positive, got {sample_size}")
-        if ref_order == "slot":
-            raise NotImplementedError(
-                "ref_order='slot' is not ported yet (ROADMAP Queue 1, "
-                "ref_order='slot'); use ref_order='row'"
-            )
-        if ref_order not in (None, "row"):
+        if ref_order not in (None, "row", "slot"):
             raise ValueError(f"unknown ref_order: {ref_order!r}")
-        self.ref_order = "row"
+        if ref_order == "slot" and not self._supports_slot_order:
+            raise NotImplementedError(
+                "ref_order='slot' is not ported to the sharded tier yet "
+                "(ROADMAP Queue 1, item 5); use ref_order='row'"
+            )
+        self.ref_order = ref_order or "row"
+        self._graph = None
 
         self.device = resolve_device(device)
 
@@ -181,9 +202,9 @@ class GraphEmbedderTorch:
         self._edges_np = edges_np
         self._strategy = self._resolved_strategy()
         if (self._strategy == "pallas"
-                and min(self.n_neighbors + 1, self.n_edges) > PALLAS_MAX_K):
+                and min(self.n_neighbors + 1, self.n_edges) > kp.MAX_K):
             raise ValueError(
-                f"knn_strategy='pallas' supports k <= {PALLAS_MAX_K}, got "
+                f"knn_strategy='pallas' supports k <= {kp.MAX_K}, got "
                 f"n_neighbors + 1 = {self.n_neighbors + 1}"
             )
         if batch_size is None:
@@ -204,7 +225,7 @@ class GraphEmbedderTorch:
             build_neighbor_table_binned(
                 edges_np, self.n,
                 overhead_rows=0 if binned_table else 4096,
-                ref_budget=ref_budget,
+                ref_order=self.ref_order, ref_budget=ref_budget,
             )
             if want_binned and self.n_edges > 0 else None
         )
@@ -216,6 +237,7 @@ class GraphEmbedderTorch:
             edges_engine = nbb["edges_int"]
         else:
             self._nb = build_neighbor_table(edges_np, self.n,
+                                            ref_order=self.ref_order,
                                             ref_budget=ref_budget)
             self._perm = None
             self._inv_perm = None
@@ -248,6 +270,10 @@ class GraphEmbedderTorch:
     # ------------------------------------------------------------------ #
     # construction helpers
     # ------------------------------------------------------------------ #
+
+    # the slot-major tables run on this engine (the sharded tier's
+    # override says they do not run there yet)
+    _supports_slot_order = True
 
     def _init_mesh(self):
         """The mesh the Chebyshev init row-shards over: none here."""
@@ -295,8 +321,9 @@ class GraphEmbedderTorch:
             if (self.n_components <= bf.MAX_DIM and k_eff <= bf.MAX_K
                     and self.n_edges < bf.MAX_REFS_SEGMENTED):
                 return "binfold"
-        # the CPU, and CUDA outside the bin-fold gates (where the JAX
-        # package takes 'approx', which is not ported yet)
+            # outside the bin-fold gates, as the JAX package does
+            return "approx"
+        # the exact blockwise scan on the CPU, as the JAX package's
         return "chunked"
 
     @property
@@ -319,11 +346,19 @@ class GraphEmbedderTorch:
         self._k_eff = min(self.n_neighbors + 1, E)
         n_ref_slots = int(len(nb["ref_edge"]))
         if self.fused_midpoints is None:
+            # while the padded slot count stays bounded and the enlarged
+            # ref set fits the strategy: the kernel's index bound for
+            # 'binfold', the one-shot distance budget for 'approx'
+            if self._strategy == "binfold":
+                budget_ok = n_ref_slots < bf.MAX_REFS_SEGMENTED
+            else:
+                budget_ok = (self.sample_size * n_ref_slots * 4
+                             <= oneshot_budget_bytes(dev))
             self._fused_refs_active = (
-                self._strategy == "binfold"
+                self._strategy in ("approx", "binfold")
                 and E > 0
                 and n_ref_slots <= 4 * E
-                and n_ref_slots < bf.MAX_REFS_SEGMENTED
+                and budget_ok
             )
         else:
             self._fused_refs_active = bool(self.fused_midpoints) and E > 0
@@ -339,11 +374,13 @@ class GraphEmbedderTorch:
             "nb_overflow": None,
             "ov_plan": None,
         }
+        # slot order keeps each table transposed, (cap, rows)
+        key = "table_t" if nb["ref_order"] == "slot" else "table"
         if "buckets" in nb:
-            ops["tables"] = [put(g["table"]) for g in nb["buckets"]]
+            ops["tables"] = [put(g[key]) for g in nb["buckets"]]
             ops["edge_order"] = put(nb["edge_user"])
         else:
-            ops["table"] = put(nb["table"])
+            ops["table"] = put(nb[key])
             ops["edge_order"] = None
         plan = nb.get("overflow_plan")
         if plan is not None:
@@ -368,46 +405,55 @@ class GraphEmbedderTorch:
         nb = self._nb
         binned = "buckets" in nb
         k_attr, L_min = self.k_attr, self.L_min
-        if binned:
+        k_eff = self._k_eff
+        fused = self._fused_refs_active and k_eff > 1
+        if nb["ref_order"] == "slot":
+            # per-slot (rows, d) gathers shared by the spring sum and the
+            # slot-major ref set
+            slotwise = (spring_refs_binned_slotwise if binned
+                        else spring_refs_slotwise)
+            spring, refs = slotwise(
+                positions, ops["tables"] if binned else ops["table"],
+                nb["buckets"] if binned else nb["ref_cap"], k_attr, L_min,
+                ref_valid=ops["ref_valid"], overflow_lt=ops["overflow_lt"],
+                overflow_edges=ops["nb_overflow"],
+                overflow_plan=ops["ov_plan"], want_refs=fused,
+            )
+        elif binned:
             pn_list = [positions[t] for t in ops["tables"]]
             spring = spring_forces_binned(
                 positions, pn_list, nb["buckets"], k_attr, L_min,
                 ops["nb_overflow"], ops["ov_plan"],
             )
+            if fused:
+                refs = midpoint_refs_binned(
+                    positions, pn_list, nb["buckets"], ops["ref_valid"],
+                    ops["overflow_lt"],
+                )
         else:
             pn = positions[ops["table"]]
             spring = spring_forces_from_gathered(
                 positions, pn, k_attr, L_min, ops["nb_overflow"],
                 ops["ov_plan"],
             )
-        k_eff = self._k_eff
-        if k_eff > 1:
-            if self._fused_refs_active:
-                if binned:
-                    refs = midpoint_refs_binned(
-                        positions, pn_list, nb["buckets"], ops["ref_valid"],
-                        ops["overflow_lt"],
-                    )
-                else:
-                    refs = midpoint_refs_from_gathered(
-                        positions, pn, nb["ref_cap"], ops["ref_valid"],
-                        ops["overflow_lt"],
-                    )
-                queries = refs[ops["edge_ref"][sampled.long()]]
-                slot_idx, _ = knn(
-                    queries, refs, k_eff, strategy=self._strategy,
-                    chunk_size=self.batch_size,
-                    recall_target=self.knn_recall_target,
+            if fused:
+                refs = midpoint_refs_from_gathered(
+                    positions, pn, nb["ref_cap"], ops["ref_valid"],
+                    ops["overflow_lt"],
                 )
+        if k_eff > 1:
+            kw = dict(strategy=self._strategy, chunk_size=self.batch_size,
+                      compute_dtype=self.knn_compute_dtype,
+                      recall_target=self.knn_recall_target)
+            if fused:
+                queries = refs[ops["edge_ref"][sampled.long()]]
+                slot_idx, _ = knn(queries, refs, k_eff, **kw)
                 knn_idx = ops["ref_edge"][slot_idx[:, 1:].long()]  # drop self
             else:
                 edges = ops["edges"]
                 midpoints = (positions[edges[:, 0]] + positions[edges[:, 1]]) / 2.0
-                knn_idx, _ = knn(
-                    midpoints[sampled.long()], midpoints, k_eff,
-                    strategy=self._strategy, chunk_size=self.batch_size,
-                    recall_target=self.knn_recall_target,
-                )
+                knn_idx, _ = knn(midpoints[sampled.long()], midpoints, k_eff,
+                                 **kw)
                 knn_idx = knn_idx[:, 1:]  # drop self column
             inter = intersection_forces(
                 positions, ops["edges"], knn_idx, sampled, self.k_inter,
@@ -426,6 +472,81 @@ class GraphEmbedderTorch:
                               self.sample_size, device=self.device)
 
     # ------------------------------------------------------------------ #
+    # fused blocks: CUDA-graph replay (JAX's multi_step)
+    # ------------------------------------------------------------------ #
+
+    @property
+    def _fused_blocks(self):
+        """Whether iterations drawn from the generator replay a CUDA graph:
+        on a card; the CPU runs them eagerly, as there is no graph there."""
+        return self.device.type == "cuda"
+
+    def _store(self, positions):
+        """Make ``positions`` the engine's: copied into the captured graph's
+        static buffer once there is a graph, so that no set position is
+        lost under it."""
+        if self._graph is None:
+            self._positions = positions
+        else:
+            self._positions.copy_(positions)
+
+    def _capture(self):
+        """Capture one iteration, the sample from the engine's generator
+        and the step into the static buffer ``self._positions``.
+
+        The generator is registered with the graph, so that each replay
+        draws at its current Philox offset and advances it as an eager draw
+        would. The capture itself draws nothing and launches nothing: the
+        kernel counters' increase during it is taken back and added once
+        per replay instead.
+        """
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device):
+            graph.register_generator_state(self._generator)
+        before = [fn.launches for fn in _COUNTED_KERNELS]
+        try:
+            with torch.cuda.graph(graph):
+                sampled = self._sample()
+                self._positions.copy_(self._raw_step(self._positions,
+                                                     sampled))
+        finally:
+            per_replay = [fn.launches - b
+                          for fn, b in zip(_COUNTED_KERNELS, before)]
+            for fn, b in zip(_COUNTED_KERNELS, before):
+                fn.launches = b
+        self._graph = graph
+        self._graph_launches = list(zip(_COUNTED_KERNELS, per_replay))
+        # the graph's sample buffer: the last replayed iteration's sample
+        self._graph_sample = sampled
+
+    def _replay(self, n):
+        """``n`` iterations drawn from the generator, by graph replay.
+
+        Before the first capture one of them runs eagerly: it builds the
+        kernels, queries their occupancy and creates the library handles
+        outside the capture, and it is a real iteration of the trajectory.
+        Nothing here synchronizes with the host.
+        """
+        if n <= 0:
+            return
+        if self._graph is None:
+            self._positions = self._raw_step(self._positions, self._sample())
+            n -= 1
+            self._capture()
+        for _ in range(n):
+            self._graph.replay()
+        for fn, per_replay in self._graph_launches:
+            fn.launches += per_replay * n
+
+    def _iterate(self, n):
+        """``n`` iterations drawn from the engine's generator."""
+        if self._fused_blocks:
+            self._replay(n)
+            return
+        for _ in range(n):
+            self._positions = self._raw_step(self._positions, self._sample())
+
+    # ------------------------------------------------------------------ #
     # public API
     # ------------------------------------------------------------------ #
 
@@ -442,8 +563,7 @@ class GraphEmbedderTorch:
         value = np.asarray(value)
         if self._perm is not None:
             value = value[self._perm]
-        self._positions = torch.tensor(value, dtype=self.dtype,
-                                       device=self.device)
+        self._store(torch.tensor(value, dtype=self.dtype, device=self.device))
 
     def get_positions(self):
         """Positions as a numpy array."""
@@ -453,20 +573,22 @@ class GraphEmbedderTorch:
         """Run one layout iteration.
 
         sample_indices : optional (S,) int array of USER edge ids — inject
-        the midpoint sample (parity-testing hook). When None, the sample is
-        drawn from the engine's generator.
+        the midpoint sample (parity-testing hook); the step then runs
+        eagerly, as JAX's separate ``_raw_step`` jit does. When None, the
+        sample is drawn from the engine's generator by the same replayed
+        graph as run_layout's on a card.
         """
         if self.n_edges == 0:
             return
         if sample_indices is None:
-            sampled = self._sample()
+            self._iterate(1)
         else:
             sampled = np.asarray(sample_indices)
             if self._edge_map is not None:
                 # the binned engine renumbers edges internally
                 sampled = self._edge_map[sampled]
             sampled = torch.as_tensor(sampled, device=self.device).to(torch.int32)
-        self._positions = self._raw_step(self._positions, sampled)
+            self._store(self._raw_step(self._positions, sampled))
         self._iteration += 1
 
     def _sync(self):
@@ -476,8 +598,13 @@ class GraphEmbedderTorch:
     def run_layout(self, num_iterations=100, block_size=10, progress=False):
         """Run the force-directed layout; returns the final positions.
 
-        Iterations are queued on the device in blocks of ``block_size``,
-        with one synchronization and one progress update per block.
+        Iterations run in blocks of ``block_size``, with one progress
+        update per block. On a card each iteration replays one captured
+        CUDA graph (the first one runs eagerly, then the capture; see
+        ``_replay``), and the host waits for the device only to advance a
+        progress bar and when the final positions are read. Capture or
+        replay errors raise: the CUDA path never falls back to the eager
+        loop, which is the CPU's.
         """
         if self.verbose:
             self.logger.info("Running layout for %d iterations", num_iterations)
@@ -496,12 +623,13 @@ class GraphEmbedderTorch:
         done = 0
         while done < num_iterations:
             n = min(block_size, num_iterations - done)
-            for _ in range(n):
-                self._positions = self._raw_step(self._positions,
-                                                 self._sample())
+            self._iterate(n)
             done += n
             self._iteration += n
-            self._sync()
+            if bar is not None or not self._fused_blocks:
+                # the bar tracks the device, not the launch queue; the
+                # eager tiers sync per block as before
+                self._sync()
             if bar is not None:
                 bar.update(n)
             if self.verbose:

@@ -1,6 +1,6 @@
 """Force computations for the layout iteration, and the host-side tables.
 
-Counterpart of ``graphem_rapids_tpu/ops/forces.py``, row ref order only.
+Counterpart of ``graphem_rapids_tpu/ops/forces.py``, with both ref orders.
 
 Host builders (numpy; their arrays are equal to the JAX builders' with
 ``to_device=False``): a dense self-padded neighbor table turns the spring
@@ -74,11 +74,15 @@ def _ref_prefix(lt_deg, rows):
     return best_C
 
 
-def build_neighbor_table(edges_np, n, cap=None, ref_budget=None):
-    """Dense (n, D) self-padded neighbor table + overflow, row ref order.
+def build_neighbor_table(edges_np, n, cap=None, ref_order="row",
+                         ref_budget=None):
+    """Dense (n, D) self-padded neighbor table + overflow.
 
     Returns a dict of numpy arrays:
-      'table'      : (n, D) int32 neighbor ids (self-padded)
+      'table'      : (n, D) int32 neighbor ids (self-padded); with
+                     ref_order='slot' it is stored transposed, (D, n),
+                     under 'table_t'
+      'ref_order'  : 'row' or 'slot', the ref space's enumeration
       'overflow'   : (O, 2) int32 (vertex, neighbor) directed pairs
       'n', 'ref_cap': ints
       'ref_edge'   : (n*ref_cap + O2,) int32 edge id per kNN ref slot
@@ -86,9 +90,15 @@ def build_neighbor_table(edges_np, n, cap=None, ref_budget=None):
       'overflow_lt': (O2, 2) int32 i<j overflow pairs (appended refs)
       'edge_ref'   : (E,) int32 ref slot of each edge
       'overflow_plan': dict or None (build_overflow_plan)
+
+    ``ref_order`` enumerates the table's ref slots: 'row' puts slot (v, s)
+    at v*ref_cap + s, 'slot' at s*n + v (the order the slotwise step ops
+    below emit their refs in).
     """
+    if ref_order not in ("row", "slot"):
+        raise ValueError(f"unknown ref_order: {ref_order!r}")
     if len(edges_np) == 0:
-        return {
+        out = {
             "table": np.zeros((n, 1), np.int32),
             "overflow": np.zeros((0, 2), np.int32),
             "n": n,
@@ -98,7 +108,11 @@ def build_neighbor_table(edges_np, n, cap=None, ref_budget=None):
             "overflow_lt": np.zeros((0, 2), np.int32),
             "edge_ref": np.zeros((0,), np.int32),
             "overflow_plan": None,
+            "ref_order": ref_order,
         }
+        if ref_order == "slot":
+            out["table_t"] = out.pop("table").T
+        return out
     E = len(edges_np)
     e0 = np.minimum(edges_np[:, 0], edges_np[:, 1]).astype(np.int32)
     e1 = np.maximum(edges_np[:, 0], edges_np[:, 1]).astype(np.int32)
@@ -159,10 +173,14 @@ def build_neighbor_table(edges_np, n, cap=None, ref_budget=None):
 
     overflow_lt = np.column_stack([e0[ko], e1[ko]])
     edge_ref = np.full(E, -1, np.int32)
-    edge_ref[kt] = e0[kt] * ref_cap + col_fwd[kt]
+    if ref_order == "slot":
+        edge_ref[kt] = col_fwd[kt] * n + e0[kt]
+        slot_edge = np.ascontiguousarray(slot_edge.T)
+        ref_valid = np.ascontiguousarray(ref_valid.T)
+    else:
+        edge_ref[kt] = e0[kt] * ref_cap + col_fwd[kt]
     edge_ref[ko] = n * ref_cap + np.arange(len(ko), dtype=np.int32)
-    return {
-        "table": table,
+    out = {
         "overflow": overflow,
         "n": n,
         "ref_cap": ref_cap,
@@ -171,7 +189,13 @@ def build_neighbor_table(edges_np, n, cap=None, ref_budget=None):
         "overflow_lt": overflow_lt,
         "edge_ref": edge_ref,
         "overflow_plan": overflow_plan,
+        "ref_order": ref_order,
     }
+    if ref_order == "slot":
+        out["table_t"] = np.ascontiguousarray(table.T)
+    else:
+        out["table"] = table
+    return out
 
 
 def plan_degree_buckets(deg_clipped, max_buckets=8, overhead_rows=4096):
@@ -210,7 +234,7 @@ def plan_degree_buckets(deg_clipped, max_buckets=8, overhead_rows=4096):
 
 
 def build_neighbor_table_binned(edges_user, n, overhead_rows=4096,
-                                ref_budget=None):
+                                ref_order="row", ref_budget=None):
     """Degree-binned neighbor tables over an internal vertex renumbering.
 
     Vertices are stably sorted by table-cap-clipped degree and split into
@@ -225,10 +249,17 @@ def build_neighbor_table_binned(edges_user, n, overhead_rows=4096,
       -> internal edge; 'edge_user' (E,) internal edge -> user edge
       'buckets': [{'start', 'count', 'cap', 'ref_cap', 'ref_offset',
       'table' (count, cap) int32}], and 'overflow', 'overflow_plan',
-      'overflow_lt', 'edge_ref', 'ref_edge', 'ref_valid', 'n' as in
-      build_neighbor_table (the ref space is each bucket's
+      'overflow_lt', 'edge_ref', 'ref_edge', 'ref_valid', 'n', 'ref_order'
+      as in build_neighbor_table (the ref space is each bucket's
       count_g * ref_cap_g slots in order, then the overflow refs).
+
+    ``ref_order``: 'row' enumerates bucket g's ref slot (v, s) as
+    ref_offset_g + p*ref_cap_g + s (p = v - start_g) and stores 'table'
+    (count, cap); 'slot' enumerates ref_offset_g + s*count_g + p and
+    stores 'table_t' (cap, count).
     """
+    if ref_order not in ("row", "slot"):
+        raise ValueError(f"unknown ref_order: {ref_order!r}")
     E = len(edges_user)
     if E == 0:
         return None
@@ -334,11 +365,17 @@ def build_neighbor_table_binned(edges_user, n, overhead_rows=4096,
     R_slots = int(ref_off[-1])
 
     sel_t = col_fwd < vref[e0]
-    ref_row_off = (
-        np.repeat(ref_off[:-1], counts)
-        + (np.arange(n) - np.repeat(starts, counts)) * vref
-    ).astype(np.int32)
-    ref_slot = ref_row_off[e0[sel_t]] + col_fwd[sel_t]
+    posv = (np.arange(n) - np.repeat(starts, counts)).astype(np.int32)
+    if ref_order == "slot":
+        # slot-major within each bucket: base_g + s*count_g + (v - start_g)
+        base = np.repeat(ref_off[:-1], counts).astype(np.int32)
+        cntv = np.repeat(counts, counts).astype(np.int32)
+        et = e0[sel_t]
+        ref_slot = base[et] + col_fwd[sel_t] * cntv[et] + posv[et]
+    else:
+        ref_row_off = (np.repeat(ref_off[:-1], counts)
+                       + posv * vref).astype(np.int32)
+        ref_slot = ref_row_off[e0[sel_t]] + col_fwd[sel_t]
     ref_valid = np.zeros(R_slots, bool)
     ref_valid[ref_slot] = True
     slot_ref_edge = np.zeros(R_slots, np.int32)
@@ -355,14 +392,19 @@ def build_neighbor_table_binned(edges_user, n, overhead_rows=4096,
     buckets = []
     for g, (cnt, cap) in enumerate(spec):
         lo, hi = slot_off[starts[g]], slot_off[starts[g] + cnt]
-        buckets.append({
+        table = flat_table[lo:hi].reshape(cnt, cap)
+        bucket = {
             "start": int(starts[g]),
             "count": int(cnt),
             "cap": int(cap),
             "ref_cap": int(ref_caps[g]),
             "ref_offset": int(ref_off[g]),
-            "table": flat_table[lo:hi].reshape(cnt, cap),
-        })
+        }
+        if ref_order == "slot":
+            bucket["table_t"] = np.ascontiguousarray(table.T)
+        else:
+            bucket["table"] = table
+        buckets.append(bucket)
     return {
         "perm": perm,
         "inv_perm": inv,
@@ -376,6 +418,7 @@ def build_neighbor_table_binned(edges_user, n, overhead_rows=4096,
         "edge_ref": edge_ref,
         "ref_edge": ref_edge,
         "ref_valid": ref_valid,
+        "ref_order": ref_order,
         "n": n,
     }
 
@@ -538,6 +581,11 @@ def midpoint_refs_binned(positions, pn_list, buckets, ref_valid,
         valid = ref_valid[off:off + g["count"] * rc]
         parts.append(masked_slot_midpoints(pv, pn, rc, valid))
         off += g["count"] * rc
+    return _concat_refs(parts, positions, overflow_lt)
+
+
+def _concat_refs(parts, positions, overflow_lt):
+    """The ref blocks in order, then the overflow midpoints."""
     if parts:
         refs = torch.cat(parts, dim=0)
     else:
@@ -545,6 +593,75 @@ def midpoint_refs_binned(positions, pn_list, buckets, ref_valid,
     if overflow_lt is not None and overflow_lt.shape[0] > 0:
         refs = torch.cat([refs, overflow_midpoints(positions, overflow_lt)])
     return refs
+
+
+def spring_refs_slotwise(positions, table_t, ref_cap, k_attr, L_min,
+                         ref_valid=None, overflow_lt=None,
+                         overflow_edges=None, overflow_plan=None,
+                         want_refs=True):
+    """Spring forces and midpoint refs from the slot-major flat table.
+
+    Step op of ``build_neighbor_table(..., ref_order='slot')``: the (D, n)
+    ``table_t`` is walked one slot at a time, an (n, d) gather each, which
+    feeds the spring sum and, over the first ``ref_cap`` slots, the ref
+    block of slot s (flat refs s*n + v), then the overflow midpoints.
+    Returns (forces, refs); refs is None unless ``want_refs``. The same
+    per-slot arithmetic as spring_forces_from_gathered and
+    midpoint_refs_from_gathered, in slot-major enumeration.
+    """
+    n = positions.shape[0]
+    rc = min(ref_cap, table_t.shape[0])
+    acc = torch.zeros_like(positions)
+    parts = []
+    pad = torch.full((), REF_PAD_VALUE, dtype=positions.dtype,
+                     device=positions.device)
+    for s in range(table_t.shape[0]):
+        pn_s = positions[table_t[s]]
+        acc = acc + _spring(pn_s - positions, k_attr, L_min)
+        if want_refs and s < rc:
+            v = ref_valid[s * n:(s + 1) * n]
+            parts.append(torch.where(v[:, None], (positions + pn_s) * 0.5,
+                                     pad))
+    forces = _apply_table_overflow(acc, positions, overflow_edges,
+                                   overflow_plan, k_attr, L_min)
+    refs = _concat_refs(parts, positions, overflow_lt) if want_refs else None
+    return forces, refs
+
+
+def spring_refs_binned_slotwise(positions, tables_t, buckets, k_attr, L_min,
+                                ref_valid=None, overflow_lt=None,
+                                overflow_edges=None, overflow_plan=None,
+                                want_refs=True):
+    """Spring forces and midpoint refs from slot-major binned tables.
+
+    Step op of ``build_neighbor_table_binned(..., ref_order='slot')``:
+    ``tables_t[g]`` is bucket g's (cap, count) table, walked one slot at a
+    time; the refs of bucket g's slot s land at ref_offset_g + s*count_g +
+    p. Returns (forces, refs) as spring_refs_slotwise does.
+    """
+    blocks = []
+    parts = []
+    off = 0
+    pad = torch.full((), REF_PAD_VALUE, dtype=positions.dtype,
+                     device=positions.device)
+    for g, tt in zip(buckets, tables_t):
+        cnt, cap = g["count"], g["cap"]
+        rc = min(g["ref_cap"], cap)
+        pv = positions[g["start"]:g["start"] + cnt]
+        acc = torch.zeros_like(pv)
+        for s in range(cap):
+            pn_s = positions[tt[s]]
+            acc = acc + _spring(pn_s - pv, k_attr, L_min)
+            if want_refs and s < rc:
+                v = ref_valid[off + s * cnt:off + (s + 1) * cnt]
+                parts.append(torch.where(v[:, None], (pv + pn_s) * 0.5, pad))
+        blocks.append(acc)
+        off += cnt * rc
+    forces = _apply_table_overflow(torch.cat(blocks, dim=0), positions,
+                                   overflow_edges, overflow_plan, k_attr,
+                                   L_min)
+    refs = _concat_refs(parts, positions, overflow_lt) if want_refs else None
+    return forces, refs
 
 
 def spring_forces(positions, edges, k_attr, L_min):

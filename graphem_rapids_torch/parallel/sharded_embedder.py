@@ -68,6 +68,17 @@ class ShardedGraphEmbedder(GraphEmbedderTorch):
         super().__init__(adjacency, n_components=n_components,
                          device=mesh.device, seed=seed, **kwargs)
 
+    # slot-major tables are ported to the single-card engine only
+    # (ROADMAP Queue 1, item 5)
+    _supports_slot_order = False
+
+    @property
+    def _fused_blocks(self):
+        # eager, with _sync's replica-gap check after each block: fused
+        # blocks need NCCL calls inside a CUDA graph and that check moved
+        # off the host (ROADMAP Queue 1, the sharded tier's fused blocks)
+        return False
+
     def _resolved_strategy(self):
         return "sharded"
 

@@ -35,8 +35,10 @@ The local top-k differs from the JAX package's, as the single-card engine's
 does: on a CUDA mesh it is the bin-fold kernel K1 when the tile is large
 (``use_binfold_local``), otherwise exact in float32 through
 ``knn_chunked``. bf16 distances were a TPU speed choice ('auto' is float32
-here; an explicit ``knn_dtype`` is honored), and ``approx_min_k`` has no
-counterpart (``use_approx_local=True`` raises).
+here; an explicit ``knn_dtype`` is honored). ``use_approx_local=True`` is
+the JAX package's approx local top-k as it runs off a TPU: the tile padded
+to a multiple of 128 rows at 1e30, one-shot distances in ``knn_dtype`` (or
+the queries' dtype) and an exact ``torch.topk``.
 """
 
 import logging
@@ -52,7 +54,7 @@ from ..ops.forces import (
     masked_slot_midpoints,
     overflow_midpoints,
 )
-from ..ops.knn import knn_chunked
+from ..ops.knn import knn_chunked, squared_distances
 from ..ops.sampling import sample_indices
 from .mesh import EDGE_AXIS
 from .ring_binfold import ring_binfold_topk, ring_supported
@@ -124,7 +126,9 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
     count stays within 4E, and keeps the unfused exact path on CPU meshes.
     ``use_binfold_local=None`` takes the bin-fold kernel for the local
     top-k on CUDA meshes with at least BINFOLD_LOCAL_MIN_REFS refs per rank,
-    kk <= MAX_K and d <= MAX_DIM. ``knn_dtype='auto'`` is float32;
+    kk <= MAX_K and d <= MAX_DIM; otherwise ``use_approx_local=True``
+    takes the one-shot local top-k, and None (as False) the exact chunked
+    one. ``knn_dtype='auto'`` is float32;
     ``packed_gather`` is accepted and changes nothing. ``_debug_knn`` makes
     the step return (neighbor edge ids, sample); ``_debug_spring`` returns
     the standardized spring forces. ``axis_name`` is accepted for API
@@ -134,11 +138,6 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
         knn_comm = "all_gather"
     if knn_comm not in KNN_COMMS:
         raise ValueError(f"Unknown knn_comm: {knn_comm!r}")
-    if use_approx_local:
-        raise NotImplementedError(
-            "use_approx_local=True is not ported: approx_min_k has no "
-            "counterpart (ROADMAP Queue 1, item 6)"
-        )
     if nb is not None and nb.get("ref_order") == "slot":
         raise NotImplementedError(
             "the sharded tier's slot-order tables are not ported yet "
@@ -449,6 +448,12 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
         mid_loc = ref_tile(positions, ops, gathered, p1, p2, valid_loc)
         R_loc = mid_loc.shape[0]
         kk = min(k + 1, R_loc)
+        if use_approx_local and not use_binfold_local:
+            # the JAX tier's lane pad: rows at 1e30 are never selected
+            R_lane = -(-R_loc // 128) * 128
+            if R_lane != R_loc:
+                mid_loc = torch.cat([mid_loc, mid_loc.new_full(
+                    (R_lane - R_loc, mid_loc.shape[1]), 1e30)])
 
         def tile_topk(queries):
             """Local top-kk of ``queries`` against this rank's tile."""
@@ -457,6 +462,12 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
                     queries.to(torch.float32), mid_loc, kk,
                     recall_target=recall_target,
                 )
+                idx_t = torch.clamp(idx_t, max=R_loc - 1)
+            elif use_approx_local:
+                dt = knn_dtype if knn_dtype is not None else queries.dtype
+                d2 = squared_distances(queries.to(dt), mid_loc.to(dt))
+                vals_t, idx_t = torch.topk(d2, kk, dim=1, largest=False,
+                                           sorted=True)
                 idx_t = torch.clamp(idx_t, max=R_loc - 1)
             elif knn_dtype is not None:
                 idx_t, vals_t = knn_chunked(

@@ -6,7 +6,8 @@ engine is one; this layer picks its kNN strategy and device tier:
 
 - 'exact'   : one (S, E) distance matrix + top-k (small graphs)
 - 'chunked' : blockwise scan with a running top-k (large graphs, CPU hosts)
-- 'approx'  : not ported yet (raises in the engine)
+- 'approx'  : one-shot distances + exact top-k, the chunked scan beyond
+              the one-shot budget (ops/knn.py knn_approx)
 - 'binfold' : the bin-fold kernel
 - 'pallas'  : the exact tiled kNN kernel (the name is the API's)
 - 'sharded' : the multi-card tier (parallel/, one rank per card)

@@ -57,6 +57,23 @@ CONFIGS = {
                      dict(knn_strategy="pallas", fused_midpoints=True,
                           binned_table=True),
                      "binned+overflow plan", "pallas", True),
+    # the approx tier off a TPU: one-shot distances and an exact top-k
+    "approx": (lambda: gr.generate_random_regular(n=300, d=6, seed=3),
+               dict(knn_strategy="approx", fused_midpoints=False), "flat",
+               "approx", False),
+    # fused by the auto rule for 'approx' (one-shot budget, 4E slots)
+    "fused_approx": (_skewed_adj,
+                     dict(knn_strategy="approx", binned_table=True),
+                     "binned+overflow plan", "approx", True),
+    # slot-major tables: K1 sees the refs in JAX's slot order
+    "slot_fused_binfold": (lambda: gr.generate_random_regular(n=300, d=6,
+                                                              seed=4),
+                           dict(knn_strategy="binfold", ref_order="slot"),
+                           "flat", "binfold", True),
+    "slot_binned_fused_binfold": (_skewed_adj,
+                                  dict(knn_strategy="binfold",
+                                       ref_order="slot", binned_table=True),
+                                  "binned+overflow plan", "binfold", True),
 }
 
 
@@ -71,6 +88,7 @@ def _pair(name, sample_size=64, seed=7):
     assert port._strategy == strategy
     assert port._fused_refs_active is fused is ref._fused_refs_active
     assert ("buckets" in port._nb) == ("buckets" in ref._nb)
+    assert port.ref_order == ref.ref_order
     start = np.random.default_rng(seed).standard_normal(
         (port.n, 3)).astype(np.float32)
     ref.positions = start
@@ -166,8 +184,14 @@ def test_run_layout_and_edge_cases():
     assert emb._iteration == 5
     with pytest.raises(ValueError, match="block_size"):
         emb.run_layout(2, block_size=0)
-    with pytest.raises(NotImplementedError, match="slot"):
-        GraphEmbedderTorch(adj, device="cpu", verbose=False, ref_order="slot")
+    slot = GraphEmbedderTorch(adj, device="cpu", verbose=False, seed=0,
+                              n_components=3, ref_order="slot")
+    assert slot.ref_order == "slot" and slot._nb["ref_order"] == "slot"
+    assert "table_t" in slot._nb and "table" not in slot._nb
+    spos = slot.run_layout(5, block_size=2)
+    assert spos.shape == (120, 3) and np.isfinite(spos).all()
+    with pytest.raises(ValueError, match="ref_order"):
+        GraphEmbedderTorch(adj, device="cpu", verbose=False, ref_order="col")
     with pytest.raises(ValueError, match="square"):
         GraphEmbedderTorch(np.ones((2, 3)), device="cpu", verbose=False)
     with pytest.raises(ValueError, match="n_neighbors"):
@@ -190,11 +214,15 @@ def test_auto_strategy_gates(monkeypatch):
     assert emb._resolved_strategy() == "chunked"  # the CPU
     monkeypatch.setattr(emb, "device", torch.device("cuda"))
     assert emb._resolved_strategy() == "binfold"
+    # outside the bin-fold gates CUDA takes 'approx', as JAX does
     monkeypatch.setattr(emb, "n_components", 9)  # dimension gate
-    assert emb._resolved_strategy() == "chunked"
+    assert emb._resolved_strategy() == "approx"
     monkeypatch.setattr(emb, "n_components", 3)
     monkeypatch.setattr(emb, "n_neighbors", 48)  # k+1 > MAX_K
-    assert emb._resolved_strategy() == "chunked"
+    assert emb._resolved_strategy() == "approx"
+    monkeypatch.setattr(emb, "n_neighbors", 10)
+    monkeypatch.setattr(emb, "n_edges", 1 << 28)  # past MAX_REFS_SEGMENTED
+    assert emb._resolved_strategy() == "approx"
 
 
 @pytest.mark.fast

@@ -93,7 +93,7 @@ def test_flat_table_equals_jax(name, cap):
     port = tf.build_neighbor_table(edges, n, cap=cap)
     ref = jf.build_neighbor_table(edges, n, cap=cap, to_device=False)
     _assert_same(port, ref)
-    assert set(port) == set(ref) - {"ref_order"}
+    assert set(port) == set(ref)
 
 
 @pytest.mark.fast

@@ -229,8 +229,11 @@ def test_knn_dispatch():
     r = torch.arange(20, dtype=torch.float32).reshape(10, 2)
     idx, _ = tknn.knn(q, r, 3)
     assert idx.tolist() == [[0, 1, 2]] * 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tknn.knn(q, r, 3, strategy="approx")
+    # 'approx' is the one-shot tier off a TPU: exact, as JAX's there
+    aidx, avals = tknn.knn(q, r, 3, strategy="approx")
+    assert aidx.dtype == torch.int32 and avals.dtype == torch.float32
+    assert aidx.tolist() == [[0, 1, 2]] * 4
+    np.testing.assert_array_equal(avals.numpy(), [[1.0, 13.0, 41.0]] * 4)
     pidx, pvals = tknn.knn(q, r, 3, strategy="pallas")
     assert pidx.tolist() == [[0, 1, 2]] * 4
     np.testing.assert_array_equal(pvals.numpy(), [[1.0, 13.0, 41.0]] * 4)

@@ -91,6 +91,10 @@ SAME_AS = {
 }
 # ring_pallas _debug_knn cases: (graph, fused refs)
 KNN_CASES = {"knn_unfused": ("regular", False), "knn_fused": ("regular", True)}
+# use_approx_local=True steps through build_sharded_step: (fused refs,
+# knn_comm); JAX's ShardedGraphEmbedder takes no use_approx_local either
+APPROX_LOCAL_CASES = {"approx_local": (False, "all_gather"),
+                      "approx_local_fused_ring": (True, "ring")}
 CKPT_VARIANT = "hub_binned_fused"
 # row-sharded Chebyshev init cases: (graph, n_components); the graphs of
 # tests/test_spectral_chebyshev.py, 1999 leaving a padded tail on 4 ranks
@@ -143,6 +147,12 @@ def _debug_knn_inputs(graph):
     n, E = adj.shape[0], len(edges)
     nb = build_neighbor_table(edges, n)
     return n, E, edges, nb, start_positions(n), samples(E, steps=1)[0]
+
+
+def _approx_local_kw(fused, knn_comm):
+    return dict(n_components=3, k_attr=0.5, L_min=10.0, k_inter=0.1,
+                n_neighbors=5, sample_size=64, knn_comm=knn_comm,
+                fused_refs=fused, use_approx_local=True, return_raw=True)
 
 
 def _debug_knn_kw(fused):
@@ -235,6 +245,16 @@ def worker(rank, world, store, out):
             edges_p).long(), torch.from_numpy(valid),
             torch.from_numpy(sampled), ops)
         res[name] = knn_idx.numpy()
+    for name, (fused, comm) in APPROX_LOCAL_CASES.items():
+        n, E, edges, nb, pos, _ = _debug_knn_inputs("regular")
+        edges_p, valid = pad_edges(edges, world)
+        _, _, ops, raw = build_sharded_step(mesh, n, E, nb=nb,
+                                            **_approx_local_kw(fused, comm))
+        pos = torch.from_numpy(pos)
+        for s in samples(E):
+            pos = raw(pos, torch.from_numpy(edges_p).long(),
+                      torch.from_numpy(valid), torch.from_numpy(s), ops)
+        res[name] = pos.numpy()
     if world == WORLD:
         from graphem_rapids_torch.ops.laplacian import _spectral_chebyshev
 
@@ -317,7 +337,7 @@ def test_gloo_matches_jax_mesh(gloo, name):
 
 @pytest.mark.fast
 @pytest.mark.parametrize("name", list(VARIANTS) + list(KNN_CASES)
-                         + list(CHEB_CASES)
+                         + list(APPROX_LOCAL_CASES) + list(CHEB_CASES)
                          + ["ckpt/resumed", "run_layout",
                             "run_layout/next_sample", "cheb_embedder"])
 def test_gloo_ranks_bit_equal(gloo, name):
@@ -370,6 +390,31 @@ def _jax_ring_pallas(case, world):
     jax.block_until_ready(knn_idx)
     np.testing.assert_array_equal(np.asarray(samp), sampled)
     return np.sort(np.asarray(knn_idx), axis=1)
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("case", list(APPROX_LOCAL_CASES))
+def test_gloo_approx_local_matches_jax(gloo, case):
+    """use_approx_local=True on 4 gloo ranks against JAX's 4-device mesh
+    with use_approx_local=True: one-shot local distances and an exact
+    top-k, as JAX's approx_min_k is off the TPU."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from graphem_rapids_tpu.parallel import build_sharded_step, make_mesh
+    from graphem_rapids_tpu.parallel.sharded_step import pad_edges
+
+    fused, comm = APPROX_LOCAL_CASES[case]
+    n, E, edges, nb, pos, _ = _debug_knn_inputs("regular")
+    edges_p, valid = pad_edges(edges, WORLD)
+    _, _, ops, raw = build_sharded_step(make_mesh(WORLD), n, E, nb=nb,
+                                        **_approx_local_kw(fused, comm))
+    pos = jnp.asarray(pos)
+    for s in samples(E):
+        pos = raw(pos, jnp.asarray(edges_p), jnp.asarray(valid),
+                  jnp.asarray(s, jnp.int32), ops)
+    np.testing.assert_allclose(gloo[0][case], np.asarray(jax.device_get(pos)),
+                               rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.fast
@@ -637,8 +682,11 @@ def test_unported_options_raise():
     kw = dict(n_components=3, k_attr=0.5, L_min=10.0, k_inter=0.1,
               n_neighbors=5, sample_size=16)
     mesh = make_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_sharded_step(mesh, 60, 90, use_approx_local=True, **kw)
+    # use_approx_local=True is ported (tests/test_torch_approx.py and the
+    # gloo cases above hold it against JAX): it builds
+    step, multi, ops = build_sharded_step(mesh, 60, 90,
+                                          use_approx_local=True, **kw)
+    assert callable(step) and callable(multi)
     with pytest.raises(NotImplementedError, match="item 5"):
         build_sharded_step(mesh, 60, 90, nb={"ref_order": "slot"}, **kw)
     with pytest.raises(ValueError, match="knn_comm"):
