@@ -9,7 +9,9 @@
                                         # one IC call, and the sharded
                                         # diagnostics of phases 11 and 13
     python3 chip_smoke.py --multi-card  # phases 1, 2 and 13 only (a host
-                                        # with several cards)
+                                        # with several cards; with --profile
+                                        # each rank also times and traces
+                                        # the 1M graph and K3's ring)
 
 Phases:
 1. device: the card's name, and its power limit and clocks from nvidia-smi;
@@ -98,32 +100,44 @@ Phases:
     queries at three shapes: the one-rank 1M shape
     (S_loc=512, R_pad=5,701,632), 64 queries against the same refs, and
     a four-card tile (S_loc=128, E_loc=1,424,936, offset 3 * R_pad) merged
-    in place into a carry;
+    in place into a carry. Then the whole-ring entry (one launch per ring,
+    the sharded path's) as a ring of one rank at the one-rank 1M shape,
+    bit-equal to the plain hop, timed per call and back to back in turns
+    with the per-hop entry (ring, hop, hop, ring): the ms of the
+    {"kernels": ...} line are the whole ring's;
 11. the sharded path: distributed_init starts a one-rank NCCL group (a
     file:// store in a temporary directory); ShardedGraphEmbedder with
     knn_comm='ring_pallas' on both graphs (at 100K with init='chebyshev',
     whose start must equal phase 14's single-card Chebyshev modulo column
-    signs at atol=1e-4), warm-up, then 50 timed
-    iterations: one ring hop (one K3 launch) per iteration and no K1
-    launch; then knn_comm='all_gather' at 1M, whose local top-k is K1;
+    signs at atol=1e-4), warm-up, then 50 timed iterations, replayed as a
+    CUDA graph (the sample and the step with its NCCL calls): one K3
+    launch per iteration and no K1 launch; the same with ref_order='slot'
+    at 100K; then knn_comm='all_gather' at 1M, whose local top-k is K1;
     with --profile also 'ring_pallas' at 1M on a one-rank mesh without a
-    process group (no NCCL call), which prices the collectives;
+    process group (no NCCL call), which prices the collectives. Then
+    phase 20 on this group;
 12. sharded against single-card: 5 injected-sample steps of the one-rank
     'ring_pallas' step and of GraphEmbedderTorch(knn_strategy='binfold'),
     both on the card, allclose;
-13. several cards, only where torch.cuda.device_count() >= 2: min(count, 4)
-    NCCL ranks, one process each; the 'ring_pallas' neighbour sets through
-    the sharded step (_debug_knn) equal ring_binfold_topk_virtual's on the
+13. several cards, only where torch.cuda.device_count() >= 2: the cards'
+    peer access and `nvidia-smi topo -m`, then min(count, 4) NCCL ranks,
+    one process each; every rank's ring neighbours must be reachable
+    (check_ring_peers); the 'ring_pallas' neighbour sets through the
+    sharded step (_debug_knn) equal ring_binfold_topk_virtual's on the
     same positions and sample, positions are bit-equal on every rank after
-    5 steps, and after 3 run_layout iterations every rank draws the same
+    5 steps with one K3 launch per step on each rank (the carries travel
+    inside it), and after 3 run_layout iterations every rank draws the same
     next sample and each rank's own update stayed within REPLICA_GAP_LIMIT
-    of rank 0's before the broadcast; each rank's row-sharded Chebyshev
-    start (one all_gather per matvec) equals rank 0's and its own
-    single-card runner's modulo column signs at atol=1e-4; with --profile
-    each rank then times
-    20 iterations of the 1M graph with 'ring_pallas' and with 'all_gather'.
-    On one card the phase prints {"phase": "multi_card", "skipped":
-    "1 card"} and runs nothing;
+    of rank 0's before the broadcast; an engine whose ranks start apart
+    raises at the end of its replayed run_layout on every rank but rank 0;
+    phase 20 for every knn_comm and both ref orders on the ranks; each
+    rank's row-sharded Chebyshev start (one all_gather per matvec) equals
+    rank 0's and its own single-card runner's modulo column signs at
+    atol=1e-4; with --profile each rank then times 20 replayed iterations
+    of the 1M graph with 'ring_pallas' and with 'all_gather', traces 10 of
+    each, and times K3's whole ring on its four-card tile against as many
+    per-hop launches. On one card the phase prints {"phase":
+    "multi_card", "skipped": "1 card"} and runs nothing;
 14. spectral init, run after phase 10: the Chebyshev tier on the card
     (twice: cold, then warm with its peak memory) against the same on the
     CPU (alignment >= 0.999, the smallest canonical correlation of the
@@ -160,7 +174,21 @@ Phases:
     pass's peak over its (S, E) matrix;
 18. slot: the 100K main path with ref_order='slot' (init='random'),
     run_layout(50) as phase 5, one K1 launch per iteration, at shapes
-    phase 3 checked.
+    phase 3 checked;
+19. ring transfer, run after phase 10: K3's whole-ring launch through its
+    store-and-flag transfer on one card, over 2, 4 and 8 virtual ranks
+    whose regions stand in for the neighbours' cards (512 queries against
+    the 1M graph's refs split into tiles): one hop per launch per rank in
+    ring order, and every rank's whole ring at once on its own stream with
+    1/ndev of the resident blocks; the same over 3, 4 and 8 ranks of 70,000
+    refs with 200 queries, where most runs are pieces; three ring calls
+    each on the same regions; distances and ids bit-equal to the per-hop
+    ring every call;
+20. sharded graph against eager: the one-rank NCCL group, every knn_comm
+    with both ref orders on phase 9's graph, and 'ring_pallas' and
+    'all_gather' on the 100K graph: after one iteration each, 5 replayed
+    iterations against 5 of the eager loop from the same generator state,
+    in deterministic mode: samples and positions bit-equal.
 
 Each main-path, quick-start, sharded and toolkit phase zeroes the kernels'
 launch counts just before its timed run and reads them just after. A
@@ -257,6 +285,13 @@ def cuda_ms(fn, reps=20, warmup=3):
     from graphem_rapids_torch.utils.profiling import time_fn
 
     return time_fn(fn, reps=reps, warmup=warmup) * 1e3
+
+
+def nvidia_smi_topology():
+    """``nvidia-smi topo -m``, line by line."""
+    out = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                         text=True, check=False).stdout
+    return [ln.rstrip() for ln in out.splitlines() if ln.strip()]
 
 
 def regular_union_graph(n, cycles=4, seed=0):
@@ -680,14 +715,16 @@ def phase_greedy(grt):
 def profile_steps(emb, label, untraced_ms_per_iter, iters=10):
     """torch.profiler over ``iters`` steps: device time per iteration by
     kernel, and its share of the untraced wall time per iteration."""
-    profile_call("profile", label, lambda: emb.run_layout(1, block_size=1),
-                 lambda: emb.run_layout(iters, block_size=iters),
-                 untraced_ms_per_iter, iters)
+    return profile_call("profile", label,
+                        lambda: emb.run_layout(1, block_size=1),
+                        lambda: emb.run_layout(iters, block_size=iters),
+                        untraced_ms_per_iter, iters)
 
 
 def profile_call(phase, label, warm, fn, untraced_ms, per):
     """torch.profiler over ``fn()``: device ms by kernel divided by ``per``,
-    and the busy share against ``untraced_ms`` (wall ms per ``per``)."""
+    and the busy share against ``untraced_ms`` (wall ms per ``per``);
+    prints the row and returns it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -705,15 +742,18 @@ def profile_call(phase, label, warm, fn, untraced_ms, per):
     busy_ms = sum(r[0] for r in rows) / 1e3 / per
     host = {ev.key: ev.count / per for ev in prof.key_averages()
             if ev.key in LAUNCH_APIS}
-    emit(phase, graph=label, per=per,
-         device_ms_per_iter=busy_ms,
-         untraced_ms_per_iter=untraced_ms,
-         device_busy_share=busy_ms / untraced_ms,
-         kernels_per_iter=sum(r[2] for r in rows) / per,
-         host_launches_per_iter=sum(host.values()), host_launch_calls=host,
-         top=[{"kernel": key[:90], "ms_per_iter": us / 1e3 / per,
-               "calls_per_iter": c / per}
-              for us, key, c in rows[:12]])
+    row = dict(graph=label, per=per,
+               device_ms_per_iter=busy_ms,
+               untraced_ms_per_iter=untraced_ms,
+               device_busy_share=busy_ms / untraced_ms,
+               kernels_per_iter=sum(r[2] for r in rows) / per,
+               host_launches_per_iter=sum(host.values()),
+               host_launch_calls=host,
+               top=[{"kernel": key[:90], "ms_per_iter": us / 1e3 / per,
+                     "calls_per_iter": c / per}
+                    for us, key, c in rows[:12]])
+    emit(phase, **row)
+    return row
 
 
 @contextlib.contextmanager
@@ -898,6 +938,53 @@ def phase_graph_vs_eager(grt, label, adj, iters=5, **engine_kw):
                              "the eager one not")
     if not (samples_equal and positions_equal):
         raise AssertionError(f"{label}: replay differs from the eager loop")
+
+
+def phase_sharded_graph_vs_eager(grt, label, adj, knn_comm, ref_order="row",
+                                  mesh=None, iters=5):
+    """Phase 20: ShardedGraphEmbedder on ``mesh`` (the one-rank NCCL mesh
+    by default) with ``knn_comm`` and ``ref_order``: after one iteration
+    each, ``iters`` iterations of run_layout (graph replay: the sample and
+    the sharded step with every collective, captured once) against as many
+    of the eager loop from the same generator state and start, both on the
+    card, in deterministic mode: samples and positions bit-equal every
+    iteration. Returns the row it prints."""
+    kw = dict(n_components=3, seed=0, verbose=False, init="random",
+              knn_comm=knn_comm, ref_order=ref_order, **FORCE_PARAMS)
+    if mesh is None:
+        mesh = grt.default_mesh()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        replayed = grt.ShardedGraphEmbedder(adj, mesh=mesh, **kw)
+        eager = grt.ShardedGraphEmbedder(adj, mesh=mesh, **kw)
+        replayed.run_layout(1)  # the eager first iteration, then the capture
+        eager_steps(eager, 1)
+        samples_equal, positions_equal, err = True, True, 0.0
+        for _ in range(iters):
+            replayed.run_layout(1)
+            sample = eager_steps(eager, 1)[0]
+            samples_equal &= bool(np.array_equal(
+                replayed._graph_sample.cpu().numpy(), sample))
+            a, b = replayed.positions, eager.positions
+            positions_equal &= bool(np.array_equal(a, b))
+            err = max(err, float(np.abs(a - b).max()))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    row = dict(graph=label, knn_comm=knn_comm, ref_order=ref_order,
+               ranks=mesh.world_size, n=replayed.n, E=replayed.n_edges,
+               table=replayed.table_kind,
+               fused_refs=replayed._fused_refs_active,
+               captured=replayed._graph is not None, iters=iters,
+               samples_bit_equal=samples_equal,
+               positions_bit_equal=positions_equal, max_abs_err=err)
+    emit("sharded_graph_vs_eager", **row)
+    if replayed._graph is None or eager._graph is not None:
+        raise AssertionError(f"{label} {knn_comm}: the replayed engine must "
+                             "capture, the eager one not")
+    if not (samples_equal and positions_equal):
+        raise AssertionError(f"{label} {knn_comm} {ref_order}: replay "
+                             "differs from the eager loop")
+    return row
 
 
 def step_knn_inputs(emb, sampled):
@@ -1211,16 +1298,119 @@ def phase_kernel_k3(rb, bf, fp32_instr_per_s, build_report):
              ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
              share_of_bound=bound / ms, share_of_bound_back_to_back=bound / b2b)
         if label == "1m_1rank_512q":
-            out.update(ms=ms, back_to_back_ms=b2b, plain_ms=plain_ms,
-                       bound_ms=bound,
+            out.update(plain_ms=plain_ms, bound_ms=bound,
                        bound_by="operations" if ops_ms >= bytes_ms
-                       else "bytes")
+                       else "bytes", hop_ms=ms, hop_back_to_back_ms=b2b)
     del t4
+    # the whole-ring entry (the sharded path's launch) at the one-rank 1M
+    # shape, a ring of one hop, in turns with the per-hop entry
+    from graphem_rapids_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(1, 0, q512.device)
+    region = rb.ring_region(mesh, 512, 3, G, n_super)
+    ring_out = (torch.empty((512, G * 128), device=q512.device),
+                torch.empty((512, G * 128), dtype=torch.int32,
+                            device=q512.device))
+
+    def ring():
+        return rb.ring_run_cuda(q512, r1m, region, ring_out, 0, 1, (0, 1), T,
+                                G, n_super, R_pad)
+
+    ring()
+    want = plain(q512, r1m, None, 0, T, G, n_super)
+    equal = bool(torch.equal(ring_out[0], want[0])
+                 and torch.equal(ring_out[1], want[1]))
+    scratch = rb.ring_fold_scratch(512, 3, G, n_super, q512.device)
+
+    def hop1():
+        return rb.ring_fold_cuda(q512, r1m, None, 0, T, G, n_super,
+                                 scratch=scratch)
+
+    turns = {"ring": [], "hop": []}
+    for name in ("ring", "hop", "hop", "ring"):
+        turns[name].append(back_to_back_ms(ring if name == "ring" else hop1))
+    ring_ms = cuda_ms(ring)
+    emit("kernel_time", name="ring_binfold", entry="whole_ring",
+         shape="1m_1rank_512q", S_loc=512, R_pad=R_pad, blocks=region.made_for[
+             5], bit_equal=equal, kernel_ms=ring_ms,
+         back_to_back_ms=turns["ring"], hop_back_to_back_ms=turns["hop"],
+         bound_ms=out["bound_ms"])
+    if not equal:
+        raise AssertionError("whole-ring kernel (one rank) disagrees with "
+                             "the plain hop")
+    out.update(ms=ring_ms, back_to_back_ms=min(turns["ring"]))
+    return out
+
+
+def phase_transfer(rb):
+    """Phase 19: K3's whole-ring launch through its store-and-flag transfer
+    path on one card. Over 2, 4 and 8 virtual ranks (the 1M graph's refs
+    split into tiles, 512 queries), and over 3, 4 and 8 ranks of 70,000
+    refs with 200 queries (two super-tiles a segment, so most runs are
+    pieces and blocks run hops apart), each rank's region mapped as its
+    neighbours' (ring_binfold_topk_transfer): (a) one hop per launch per
+    rank in ring order, every wait met at launch; (b) every rank's whole
+    ring at once, one stream each, on 1/ndev of the resident blocks, all
+    resident together. Three ring calls each on the same regions (the later
+    ones run on the epochs and flags the first left). Every call's distances
+    and ids must be bit-equal to the per-hop ring
+    (ring_binfold_topk_virtual, the kernel per hop, which phase 10 holds
+    against the plain version)."""
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    k = FORCE_PARAMS["n_neighbors"] + 1
+    refs = torch.randn(5_699_741, 3, generator=gen)
+    refs[torch.randperm(refs.shape[0], generator=gen)[:refs.shape[0] // 40]] \
+        = 1e30
+    refs = refs.cuda()
+    q512 = torch.randn(512, 3, generator=gen).cuda()
+    q200 = torch.randn(200, 3, generator=gen).cuda()
+    out = []
+    for ndev, q, E_loc in ((2, q512, None), (4, q512, None), (8, q512, None),
+                           (3, q200, 70_000), (4, q200, 70_000),
+                           (8, q200, 70_000)):
+        if E_loc is None:
+            E_loc = -(-refs.shape[0] // ndev)
+            pad = torch.full((E_loc * ndev - refs.shape[0], 3), 1e30,
+                             device="cuda")
+            tiles = list(torch.cat([refs, pad]).chunk(ndev))
+        else:
+            tiles = list(refs[:ndev * E_loc].chunk(ndev))
+        before = rb.ring_fold.launches
+        want_v, want_i, R_pad = rb.ring_binfold_topk_virtual(q, tiles, k)
+        hop_launches = rb.ring_fold.launches - before
+        for concurrent in (False, True):
+            before = rb.ring_fold.launches
+            t0 = time.perf_counter()
+            results, R2 = rb.ring_binfold_topk_transfer(
+                q, tiles, k, concurrent=concurrent, calls=3)
+            seconds = time.perf_counter() - t0
+            launches = rb.ring_fold.launches - before
+            equal = all(bool(torch.equal(v, want_v) and torch.equal(
+                torch.sort(i, dim=1).values, torch.sort(want_i, dim=1).values))
+                for v, i in results) and R2 == R_pad
+            err = max(float((v - want_v).abs().max()) for v, _ in results)
+            T, G, n_super, _, _, S_loc, _ = rb._geometry(
+                E_loc, q.shape[0], ndev, k, 0.95)
+            row = dict(ranks=ndev, mode="concurrent" if concurrent
+                       else "hop_by_hop", calls=3, S=q.shape[0],
+                       S_loc=S_loc, E_loc=E_loc,
+                       G=G, n_super=n_super, blocks=rb.ring_run_grid(
+                           S_loc, 3, G, n_super, q.device,
+                           share=ndev if concurrent else 1),
+                       launches=launches, per_hop_launches=hop_launches,
+                       seconds=seconds, bit_equal=equal, max_abs_err=err)
+            emit("ring_transfer", **row)
+            out.append(row)
+            if not equal:
+                raise AssertionError(f"ring transfer ({row['mode']}, {ndev} "
+                                     "ranks) differs from the per-hop ring")
+        del tiles
     return out
 
 
 def phase_sharded(grt, bf, rb, label, adj, init, warmup, profile, log,
-                  knn_comm="ring_pallas", mesh=None, start_ref=None):
+                  knn_comm="ring_pallas", mesh=None, start_ref=None,
+                  ref_order="row"):
     """Phase 11: ShardedGraphEmbedder on the one-rank NCCL mesh, or on
     ``mesh`` (a one-rank mesh without a process group, for comparison).
     ``start_ref``: the single-card Chebyshev start the engine's own must
@@ -1233,7 +1423,8 @@ def phase_sharded(grt, bf, rb, label, adj, init, warmup, profile, log,
     t0 = time.perf_counter()
     emb = grt.ShardedGraphEmbedder(adj, mesh=mesh, knn_comm=knn_comm,
                                    n_components=3, seed=0, verbose=False,
-                                   init=init, **FORCE_PARAMS)
+                                   init=init, ref_order=ref_order,
+                                   **FORCE_PARAMS)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     start = {}
@@ -1251,7 +1442,7 @@ def phase_sharded(grt, bf, rb, label, adj, init, warmup, profile, log,
     backend = dist.get_backend(mesh.group) if mesh.group is not None \
         else "none"
     emit("sharded_setup", graph=label, knn_comm=knn_comm,
-         ranks=mesh.world_size, backend=backend,
+         ref_order=ref_order, ranks=mesh.world_size, backend=backend,
          n=emb.n, E=emb.n_edges, table=emb.table_kind,
          fused_refs=emb._fused_refs_active, refs=refs, R_pad=R_pad, G=G,
          n_super=n_super, S_loc=S_loc, init=init, init_s=init_s, **start)
@@ -1274,15 +1465,15 @@ def phase_sharded(grt, bf, rb, label, adj, init, warmup, profile, log,
     dt = time.perf_counter() - t0
     ring, k1 = rb.ring_fold.launches, bf.knn_binfold.launches
     std = pos.std(axis=0, ddof=1)
-    emit("sharded_run", graph=label, knn_comm=knn_comm, backend=backend,
-         iters=ITERS,
+    emit("sharded_run", graph=label, knn_comm=knn_comm, ref_order=ref_order,
+         backend=backend, replayed=emb._graph is not None, iters=ITERS,
          seconds=dt, ms_per_iter=dt / ITERS * 1e3,
          edges_per_s=emb.n_edges * ITERS / dt,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
          ring_binfold_launches=ring, binfold_launches=k1,
          finite=bool(np.isfinite(pos).all()), std=std.tolist())
-    hops = mesh.world_size
-    want = (ITERS * hops, 0) if knn_comm == "ring_pallas" else (0, ITERS)
+    # one K3 launch per iteration runs every hop of the ring
+    want = (ITERS, 0) if knn_comm == "ring_pallas" else (0, ITERS)
     if (ring, k1) != want:
         raise AssertionError(f"{label} {knn_comm}: {ring} K3 and {k1} K1 "
                              f"launches in {ITERS} iterations, want {want}")
@@ -1290,8 +1481,11 @@ def phase_sharded(grt, bf, rb, label, adj, init, warmup, profile, log,
         raise AssertionError(f"{label}: positions not finite")
     if not np.allclose(std, 1.0, atol=1e-3):
         raise AssertionError(f"{label}: per-axis std {std} is not ~1")
+    if emb._graph is None:
+        raise AssertionError(f"{label}: the sharded step must replay a graph")
     if profile:
-        profile_steps(emb, f"{label}_sharded_{knn_comm}", dt / ITERS * 1e3)
+        profile_steps(emb, f"{label}_sharded_{knn_comm}_{ref_order}",
+                      dt / ITERS * 1e3)
     return ring, k1
 
 
@@ -1481,6 +1675,7 @@ def _rank_checks(grt, rank, world, tmp, profile):
     from graphem_rapids_torch.ops.forces import build_neighbor_table
     from graphem_rapids_torch.parallel import ring_binfold as rb
     from graphem_rapids_torch.parallel.sharded_step import (
+        KNN_COMMS,
         REPLICA_GAP_LIMIT,
         build_sharded_step,
         pad_edges,
@@ -1492,7 +1687,10 @@ def _rank_checks(grt, rank, world, tmp, profile):
     k = FORCE_PARAMS["n_neighbors"]
     rng = np.random.default_rng(9)
 
-    # positions stay bit-equal across ranks
+    on_card = dev.type == "cuda"
+    # the ring's neighbours can store into each other's cards (raises at
+    # construction otherwise); positions stay bit-equal across ranks
+    where = rb.check_ring_peers(mesh)
     emb = grt.ShardedGraphEmbedder(adj, mesh=mesh, knn_comm="ring_pallas",
                                    n_components=3, seed=0, verbose=False,
                                    init="random", **FORCE_PARAMS)
@@ -1515,6 +1713,32 @@ def _rank_checks(grt, rank, world, tmp, profile):
     samples_equal = all(bool(torch.equal(x, nxt))
                         for x in mesh.all_gather(nxt))
     gap = emb.replica_gap
+
+    # a rank started apart: under replay (on the cards) the gap is read at
+    # the end of run_layout, which must raise on every rank but rank 0
+    apart = grt.ShardedGraphEmbedder(adj, mesh=mesh, knn_comm="ring_pallas",
+                                     n_components=3, seed=0, verbose=False,
+                                     init="random", **FORCE_PARAMS)
+    start = apart.positions
+    apart.positions = start + 0.01 * rank * np.random.default_rng(
+        rank).standard_normal(start.shape).astype(np.float32)
+    try:
+        apart.run_layout(3, block_size=3)
+        apart_raised = False
+    except RuntimeError:
+        apart_raised = True
+    apart_ok = apart_raised == (rank != 0) and (
+        apart._graph is not None) == on_card
+
+    # replay against the eager loop for every knn_comm and both ref orders
+    replay_rows = []
+    if on_card:
+        for comm in KNN_COMMS:
+            for order in ("row", "slot"):
+                replay_rows.append(phase_sharded_graph_vs_eager(
+                    grt, "regular_union_20k", adj, comm, order, mesh=mesh))
+    replay_ok = all(r["positions_bit_equal"] and r["samples_bit_equal"]
+                    for r in replay_rows)
 
     # neighbour sets of the sharded step against the virtual ring
     edges = _user_edges(adj)
@@ -1559,9 +1783,16 @@ def _rank_checks(grt, rank, world, tmp, profile):
            "ring_binfold_launches": launches, "sets_equal": sets_equal,
            "samples_equal": samples_equal, "replica_gap": gap,
            "replica_gap_limit": REPLICA_GAP_LIMIT,
-           "layout_error": layout_error}
-    if dev.type == "cuda" and profile:
-        # the 1M graph across the cards: ms per iteration, rank's own clock
+           "layout_error": layout_error, "ranks_where": where,
+           "apart_raised": apart_raised, "apart_replayed":
+               apart._graph is not None,
+           "graph_vs_eager": [{k: r[k] for k in (
+               "knn_comm", "ref_order", "table", "captured",
+               "positions_bit_equal", "samples_bit_equal")}
+               for r in replay_rows]}
+    if on_card and profile:
+        # the 1M graph across the cards under replay: ms per iteration on
+        # the rank's own clock, and its trace
         adj1m = ring_chords_graph()
         for comm in ("ring_pallas", "all_gather"):
             emb = grt.ShardedGraphEmbedder(adj1m, mesh=mesh, knn_comm=comm,
@@ -1569,18 +1800,83 @@ def _rank_checks(grt, rank, world, tmp, profile):
                                            verbose=False, init="random",
                                            **FORCE_PARAMS)
             emb.run_layout(3, block_size=3)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             emb.run_layout(20, block_size=10)
-            res[f"ring_chords_1m_{comm}_ms_per_iter"] = \
-                (time.perf_counter() - t0) / 20 * 1e3
+            ms = (time.perf_counter() - t0) / 20 * 1e3
+            res[f"ring_chords_1m_{comm}_ms_per_iter"] = ms
+            # how far the host runs ahead: 20 replays enqueued, then the
+            # wait for the card
+            t0 = time.perf_counter()
+            emb._iterate(20)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            res[f"ring_chords_1m_{comm}_replay"] = {
+                "enqueue_ms_per_iter": (t1 - t0) / 20 * 1e3,
+                "wall_ms_per_iter": (t2 - t0) / 20 * 1e3}
+            prof = profile_steps(emb, f"ring_chords_1m_{comm}_rank{rank}", ms)
+            res[f"ring_chords_1m_{comm}_profile"] = {
+                k: prof[k] for k in ("device_ms_per_iter",
+                                     "device_busy_share", "kernels_per_iter",
+                                     "host_launches_per_iter", "top")}
+            del emb
+        res["ring_kernel"] = ring_kernel_times(rb, mesh, world)
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
-    # one hop per rank per step; the CPU (a gloo rehearsal) has no kernel
-    want = 5 * world if dev.type == "cuda" else 0
+    # one K3 launch per rank per step; the CPU (a gloo rehearsal) has none
+    want = 5 if on_card else 0
     ok = (ranks_equal and sets_equal and samples_equal and launches == want
           and gap <= REPLICA_GAP_LIMIT and layout_error is None
-          and cheb_vs_rank0 < 1e-4 and cheb_vs_single < 1e-4)
+          and cheb_vs_rank0 < 1e-4 and cheb_vs_single < 1e-4 and apart_ok
+          and replay_ok)
     return 0 if ok else 1
+
+
+def ring_kernel_times(rb, mesh, world, reps=20):
+    """K3 on the four-card 1M tile (S=512 queries, S_loc = 512 / world,
+    1,424,936 refs a rank at four cards): the whole ring, every rank
+    launching ``reps`` rings back to back between CUDA events on its own
+    card (the kernels wait on each other), against ``world`` per-hop
+    launches back to back on the same card (no transfer) and the bound of
+    ``world`` hops' instructions."""
+    gen = torch.Generator(device="cpu").manual_seed(5 + mesh.rank)
+    E_loc = -(-5_699_741 // world)
+    k = FORCE_PARAMS["n_neighbors"] + 1
+    refs = torch.randn(E_loc, 3, generator=gen).cuda()
+    q = torch.randn(512, 3, generator=torch.Generator(
+        device="cpu").manual_seed(5)).cuda()
+    T, G, n_super, R_pad, S_pad, S_loc, _ = rb._geometry(E_loc, 512, world,
+                                                         k, 0.95)
+    region = rb.ring_region(mesh, S_loc, 3, G, n_super)
+    shape = (S_loc, G * 128)
+    out = (torch.empty(shape, device=refs.device),
+           torch.empty(shape, dtype=torch.int32, device=refs.device))
+    qp = rb._padded_queries(q, S_pad)
+
+    def ring():
+        rb.ring_run_cuda(qp, refs, region, out, mesh.rank, world,
+                         (0, world), T, G, n_super, R_pad)
+
+    ring()
+    mesh.all_reduce(torch.zeros(1, device=refs.device))
+    torch.cuda.synchronize()
+    ring_ms = back_to_back_ms(ring, reps=reps, warmup=0)
+    scratch = rb.ring_fold_scratch(S_loc, 3, G, n_super, refs.device)
+    carry = rb.ring_fold_cuda(qp[:S_loc], refs, None, 0, T, G, n_super,
+                              scratch=scratch)
+    hop_ms = back_to_back_ms(lambda: rb.ring_fold_cuda(
+        qp[:S_loc], refs, carry, mesh.rank * R_pad, T, G, n_super, out=carry,
+        scratch=scratch))
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    bound_ms = world * (3 * 3 + 2) * S_loc * n_super * G * T / (
+        n_sm * 128 * clock_mhz * 1e6) * 1e3
+    return {"S_loc": S_loc, "E_loc": E_loc, "R_pad": R_pad, "hops": world,
+            "blocks": region.made_for[5], "ring_ms": ring_ms,
+            "hop_ms": hop_ms, "hops_ms": world * hop_ms,
+            "bound_ms": bound_ms,
+            "ring_over_hops": ring_ms / (world * hop_ms)}
 
 
 def phase_multi_card(backend="nccl", world=None, profile=False):
@@ -1591,6 +1887,14 @@ def phase_multi_card(backend="nccl", world=None, profile=False):
             emit("multi_card", skipped="1 card")
             return None
         world = min(count, 4)
+    if backend == "nccl":
+        # the ring's neighbours store into each other's cards: peer access
+        # between every pair, and the host's topology
+        count = torch.cuda.device_count()
+        emit("multi_card_peers", peer_access=[
+            [a == b or torch.cuda.can_device_access_peer(a, b)
+             for b in range(count)] for a in range(count)],
+             topology=nvidia_smi_topology())
     env = dict(os.environ)
     repo = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = os.pathsep.join(
@@ -1643,6 +1947,7 @@ def main(argv):
     from graphem_rapids_torch.ops import knn_pallas as kp
     from graphem_rapids_torch.ops.knn import knn_exact
     from graphem_rapids_torch.parallel import ring_binfold as rb
+    from graphem_rapids_torch.parallel.sharded_step import KNN_COMMS
 
     profile = "--profile" in argv
     kind = torch.cuda.get_device_name(0)
@@ -1675,6 +1980,7 @@ def main(argv):
     k1 = phase_kernel(bf, fp32_instr_per_s, report, toolkit_k1_shape(grt))
     k2 = phase_kernel_k2(kp, knn_exact, fp32_instr_per_s, report)
     k3 = phase_kernel_k3(rb, bf, fp32_instr_per_s, report)
+    phase_transfer(rb)
     log = spectral_log()
     adj100k, adj1m = regular_union_graph(100_000), ring_chords_graph()
     starts = phase_spectral(log, [
@@ -1716,8 +2022,22 @@ def main(argv):
             ring1m, _ = phase_sharded(grt, bf, rb, "ring_chords_1m", adj1m,
                                       "random", 5, profile, log)
             k3_launches += ring1m
-            phase_sharded(grt, bf, rb, "ring_chords_1m", adj1m, "random", 3,
-                          False, log, knn_comm="all_gather")
+            ring_slot, _ = phase_sharded(grt, bf, rb, "random_8_regular_100k",
+                                         adj100k, "random", 5, profile, log,
+                                         ref_order="slot")
+            k3_launches += ring_slot
+            _, k1_sharded = phase_sharded(grt, bf, rb, "ring_chords_1m",
+                                          adj1m, "random", 3, profile, log,
+                                          knn_comm="all_gather")
+            launches += k1_sharded
+            adj2k = regular_union_graph(2000, cycles=3, seed=1)
+            for comm in KNN_COMMS:
+                for order in ("row", "slot"):
+                    phase_sharded_graph_vs_eager(grt, "regular_2000", adj2k,
+                                                 comm, order)
+            for comm in ("ring_pallas", "all_gather"):
+                phase_sharded_graph_vs_eager(grt, "random_8_regular_100k",
+                                             adj100k, comm)
             if profile:
                 # the same one rank without a process group: collectives
                 # return their input, so this prices the NCCL calls above

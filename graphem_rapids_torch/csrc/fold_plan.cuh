@@ -38,7 +38,19 @@
 // elsewhere), and first reads the carry at the same place, keeping it
 // unless the new value is strictly below it; since no other thread reads
 // or writes that place, the output may be the carry. The sweep is the
-// same for both; the ring flag changes only the epilogue.
+// same for both; the ring flag changes only the epilogue. The carry is
+// read through L2 (__ldcg): in the whole-ring launch (ring_binfold.cu) it is
+// a slot that the left neighbour's card stores into between hops, and a
+// line of it left in this SM's L1 by an earlier hop would be stale.
+//
+// The hop hook. fold_units takes a Hook that owns the segment counts'
+// target, runs before each epilogue, and hands out the pointers of the
+// epilogue and the pieces. PlainHop, the default,
+// is K1's and K3's per-hop launch: counts zeroed by the launch, a segment
+// complete at n_super, nothing to wait for (it is empty and inlines to
+// nothing, so K1's code is what it was). The whole-ring launch passes a
+// hook whose counts run on across hops and launches and which waits for
+// the carry and the neighbour's slot there.
 
 #pragma once
 
@@ -50,6 +62,31 @@ namespace graphem_fold {
 constexpr int kLanes = 128;
 constexpr float kBig = 3.0e38f;
 constexpr float kPadCoord = 1.0e15f;
+
+struct PlainHop {
+  using Count = int;
+  __device__ __forceinline__ Count target(int n_super) const {
+    return n_super;
+  }
+  __device__ __forceinline__ void before_epilogue() {}
+  // The launch's arguments as they are. A hook may hand out its own
+  // instead, from memory rather than registers kept through the sweep.
+  __device__ __forceinline__ const float* queries(const float* p) const {
+    return p;
+  }
+  __device__ __forceinline__ const float* carry_vals(const float* p) const {
+    return p;
+  }
+  __device__ __forceinline__ const int32_t* carry_idx(const int32_t* p) const {
+    return p;
+  }
+  __device__ __forceinline__ float* out_vals(float* p) const { return p; }
+  __device__ __forceinline__ int32_t* out_idx(int32_t* p) const { return p; }
+  __device__ __forceinline__ float* part_v(float* p) const { return p; }
+  __device__ __forceinline__ int32_t* part_i(int32_t* p) const { return p; }
+  __device__ __forceinline__ Count* seg_done(Count* p) const { return p; }
+  __device__ __forceinline__ int offset(int o) const { return o; }
+};
 
 template <int DIM>
 struct Fold {
@@ -111,8 +148,8 @@ __device__ __forceinline__ void merge_bins(float* out_vals, int32_t* out_idx,
       cv[j] = kBig;
       ci[j] = 0;
       if (q0 + j < S) {
-        cv[j] = carry_vals[(q0 + j) * n_bins + bin];
-        ci[j] = carry_idx[(q0 + j) * n_bins + bin];
+        cv[j] = __ldcg(carry_vals + (q0 + j) * n_bins + bin);
+        ci[j] = __ldcg(carry_idx + (q0 + j) * n_bins + bin);
       }
     }
 #pragma unroll
@@ -134,13 +171,17 @@ __device__ __forceinline__ void merge_bins(float* out_vals, int32_t* out_idx,
 
 // Block blockIdx.x's units of the plan; n_qblk = ceil(S / QB), nb the
 // grid. The carry (RING only) may be NULL and may alias the output.
-template <int DIM, bool RING>
+// hook.before_epilogue() runs before each epilogue, uniformly in the block;
+// a segment is complete when its count reaches hook.target(n_super).
+template <int DIM, bool RING, class Hook = PlainHop>
 __device__ __forceinline__ void fold_units(
     const float* __restrict__ queries, const float* __restrict__ refs,
     const float* carry_vals, const int32_t* carry_idx, float* out_vals,
     int32_t* out_idx, float* __restrict__ part_v,
-    int32_t* __restrict__ part_i, int* __restrict__ seg_done, int S, int E,
-    int T, int G, int n_super, int n_qblk, int nb, int offset) {
+    int32_t* __restrict__ part_i, typename Hook::Count* __restrict__ seg_done,
+    int S, int E, int T, int G, int n_super, int n_qblk, int nb, int offset,
+    Hook hook = Hook()) {
+  using Count = typename Hook::Count;
   constexpr int QB = Fold<DIM>::QB;
   __shared__ int last_piece;
   const int lane = threadIdx.x;
@@ -165,7 +206,9 @@ __device__ __forceinline__ void fold_units(
     for (int j = 0; j < QB; ++j) {
 #pragma unroll
       for (int c = 0; c < DIM; ++c) {
-        q[j][c] = q0 + j < S ? queries[(long long)(q0 + j) * DIM + c] : 0.0f;
+        q[j][c] = q0 + j < S
+                      ? hook.queries(queries)[(long long)(q0 + j) * DIM + c]
+                      : 0.0f;
       }
     }
     float v[QB];
@@ -211,8 +254,10 @@ __device__ __forceinline__ void fold_units(
 
     if (s0 == 0 && s1 == n_super) {  // the whole segment: the bins' answer
       if constexpr (RING) {
-        merge_bins<QB>(out_vals, out_idx, carry_vals, carry_idx, q0, S,
-                       n_bins, bin, v, ix, offset);
+        hook.before_epilogue();
+        merge_bins<QB>(hook.out_vals(out_vals), hook.out_idx(out_idx),
+                       hook.carry_vals(carry_vals), hook.carry_idx(carry_idx),
+                       q0, S, n_bins, bin, v, ix, hook.offset(offset));
       } else {
 #pragma unroll
         for (int j = 0; j < QB; ++j) {
@@ -227,14 +272,16 @@ __device__ __forceinline__ void fold_units(
       const long long slot = ((long long)b * 2 + (u == u0 ? 0 : 1)) * QB;
 #pragma unroll
       for (int j = 0; j < QB; ++j) {
-        part_v[(slot + j) * kLanes + lane] = v[j];
-        part_i[(slot + j) * kLanes + lane] = ix[j];
+        hook.part_v(part_v)[(slot + j) * kLanes + lane] = v[j];
+        hook.part_i(part_i)[(slot + j) * kLanes + lane] = ix[j];
       }
       __threadfence();
       __syncthreads();
       if (lane == 0) {
-        const int add = s1 - s0;
-        last_piece = atomicAdd(seg_done + seg, add) + add == n_super;
+        const Count add = static_cast<Count>(s1 - s0);
+        last_piece =
+            atomicAdd(hook.seg_done(seg_done) + seg, add) + add ==
+            hook.target(n_super);
       }
       __syncthreads();
       if (last_piece) {  // every piece of the segment is written: fold them
@@ -253,12 +300,14 @@ __device__ __forceinline__ void fold_units(
 #pragma unroll
           for (int j = 0; j < QB; ++j) {
             const unsigned long long kk =
-                pack_key(__ldcg(part_v + (ps + j) * kLanes + lane),
-                         __ldcg(part_i + (ps + j) * kLanes + lane));
+                pack_key(
+                    __ldcg(hook.part_v(part_v) + (ps + j) * kLanes + lane),
+                    __ldcg(hook.part_i(part_i) + (ps + j) * kLanes + lane));
             key[j] = kk < key[j] ? kk : key[j];
           }
         }
         if constexpr (RING) {
+          hook.before_epilogue();
           float kv[QB];
           int32_t kp[QB];
 #pragma unroll
@@ -266,8 +315,10 @@ __device__ __forceinline__ void fold_units(
             kv[j] = __uint_as_float((unsigned int)(key[j] >> 32));
             kp[j] = (int32_t)(key[j] & 0xffffffffu);
           }
-          merge_bins<QB>(out_vals, out_idx, carry_vals, carry_idx, q0, S,
-                         n_bins, bin, kv, kp, offset);
+          merge_bins<QB>(hook.out_vals(out_vals), hook.out_idx(out_idx),
+                         hook.carry_vals(carry_vals),
+                         hook.carry_idx(carry_idx), q0, S, n_bins, bin, kv,
+                         kp, hook.offset(offset));
         } else {
 #pragma unroll
           for (int j = 0; j < QB; ++j) {

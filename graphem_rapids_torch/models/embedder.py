@@ -186,11 +186,6 @@ class GraphEmbedderTorch:
             raise ValueError(f"sample_size must be positive, got {sample_size}")
         if ref_order not in (None, "row", "slot"):
             raise ValueError(f"unknown ref_order: {ref_order!r}")
-        if ref_order == "slot" and not self._supports_slot_order:
-            raise NotImplementedError(
-                "ref_order='slot' is not ported to the sharded tier yet "
-                "(ROADMAP Queue 1, item 5); use ref_order='row'"
-            )
         self.ref_order = ref_order or "row"
         self._graph = None
 
@@ -270,10 +265,6 @@ class GraphEmbedderTorch:
     # ------------------------------------------------------------------ #
     # construction helpers
     # ------------------------------------------------------------------ #
-
-    # the slot-major tables run on this engine (the sharded tier's
-    # override says they do not run there yet)
-    _supports_slot_order = True
 
     def _init_mesh(self):
         """The mesh the Chebyshev init row-shards over: none here."""
@@ -481,6 +472,12 @@ class GraphEmbedderTorch:
         on a card; the CPU runs them eagerly, as there is no graph there."""
         return self.device.type == "cuda"
 
+    # the kernel wrappers whose launches a replay adds (``launches``), and
+    # the capture's error mode (torch.cuda.graph): 'global' refuses, in any
+    # thread, a CUDA call that is unsafe during the capture
+    _counted_kernels = _COUNTED_KERNELS
+    _capture_error_mode = "global"
+
     def _store(self, positions):
         """Make ``positions`` the engine's: copied into the captured graph's
         static buffer once there is a graph, so that no set position is
@@ -503,19 +500,20 @@ class GraphEmbedderTorch:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(self.device):
             graph.register_generator_state(self._generator)
-        before = [fn.launches for fn in _COUNTED_KERNELS]
+        counted = self._counted_kernels
+        before = [fn.launches for fn in counted]
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph,
+                                  capture_error_mode=self._capture_error_mode):
                 sampled = self._sample()
                 self._positions.copy_(self._raw_step(self._positions,
                                                      sampled))
         finally:
-            per_replay = [fn.launches - b
-                          for fn, b in zip(_COUNTED_KERNELS, before)]
-            for fn, b in zip(_COUNTED_KERNELS, before):
+            per_replay = [fn.launches - b for fn, b in zip(counted, before)]
+            for fn, b in zip(counted, before):
                 fn.launches = b
         self._graph = graph
-        self._graph_launches = list(zip(_COUNTED_KERNELS, per_replay))
+        self._graph_launches = list(zip(counted, per_replay))
         # the graph's sample buffer: the last replayed iteration's sample
         self._graph_sample = sampled
 

@@ -12,7 +12,12 @@ Rank r computes on ``cuda:{LOCAL_RANK or r}`` under NCCL and on the CPU under
 gloo. The collectives of the sharded step are the methods of ``Mesh``:
 tiled ``lax.all_gather`` is ``all_gather_into_tensor``, ``psum`` is
 ``all_reduce``, ``lax.all_to_all`` is ``all_to_all_single`` and
-``ppermute`` is one ``batch_isend_irecv``.
+``ppermute`` is one ``batch_isend_irecv``. Under NCCL each of them is
+enqueued on the rank's current stream and waited for by that stream, never
+by the host, so a step made of them can be captured in a CUDA graph once
+its communicators exist (the first, eager, call creates them); every rank
+must then capture and replay the same sequence. ``all_gather_object``
+and ``broadcast_object`` move host objects and are for set-up only.
 
 Without an initialized process group, ``default_mesh()`` is a one-rank mesh
 on the current card and every collective returns its input, as the JAX
@@ -88,6 +93,8 @@ class Mesh:
         self.rank = int(rank)
         self.device = torch.device("cpu" if device is None else device)
         self.group = group
+        # K3's peer regions, one per ring geometry (parallel/ring_binfold.py)
+        self.ring_regions = {}
 
     @property
     def shape(self):
@@ -143,6 +150,14 @@ class Mesh:
         if self.group is not None:
             dist.broadcast(x, src=src, group=self.group)
         return x
+
+    def all_gather_object(self, obj):
+        """Every rank's picklable ``obj``, in rank order (set-up only)."""
+        if self.group is None:
+            return [obj]
+        out = [None] * self.world_size
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
 
     def broadcast_object(self, obj, src=0):
         """Rank ``src``'s picklable ``obj`` on every rank."""

@@ -12,17 +12,28 @@ same sample each iteration, as the JAX tier's replicated key does, and the
 positions stay bit-equal across ranks. The Chebyshev init ('chebyshev',
 and 'auto' from 500,000 vertices) row-shards its SpMV over the mesh's
 ranks. The step broadcasts rank 0's new positions each iteration;
-``replica_gap`` is the largest gap that closed, and ``run_layout`` raises at
-a block's end when it exceeds REPLICA_GAP_LIMIT: ranks that drew different
-samples or started apart are an error, not rounding for the broadcast to
-absorb.
+``replica_gap`` is the largest gap that closed, and ``run_layout`` raises
+when it exceeds REPLICA_GAP_LIMIT: ranks that drew different samples or
+started apart are an error, not rounding for the broadcast to absorb.
+
+On the cards ``run_layout`` runs as the single-card engine's does: the
+first iteration eagerly (it builds the kernels, creates the NCCL
+communicators and, for 'ring_pallas', K3's peer regions), then one
+iteration, the sample and the sharded step with all of its collectives, is
+captured as a CUDA graph and replayed; every rank captures and replays the
+same sequence. The replica gap lives on the card and is read once, at the
+end of ``run_layout`` (the eager CPU loop reads it at every block's end).
+Both ref orders run here; the auto order is 'row', as the JAX package
+picks slot order only on a TPU.
 """
 
 import numpy as np
 import torch
 
-from ..models.embedder import GraphEmbedderTorch, resolve_device
+from ..models.embedder import _COUNTED_KERNELS, GraphEmbedderTorch, \
+    resolve_device
 from .mesh import default_mesh
+from .ring_binfold import ring_fold
 from .sharded_step import (
     KNN_COMMS,
     REPLICA_GAP_LIMIT,
@@ -68,16 +79,13 @@ class ShardedGraphEmbedder(GraphEmbedderTorch):
         super().__init__(adjacency, n_components=n_components,
                          device=mesh.device, seed=seed, **kwargs)
 
-    # slot-major tables are ported to the single-card engine only
-    # (ROADMAP Queue 1, item 5)
-    _supports_slot_order = False
-
-    @property
-    def _fused_blocks(self):
-        # eager, with _sync's replica-gap check after each block: fused
-        # blocks need NCCL calls inside a CUDA graph and that check moved
-        # off the host (ROADMAP Queue 1, the sharded tier's fused blocks)
-        return False
+    # K3's launches (ring_fold.launches counts both of its entries) are
+    # added per replay as well. The capture is thread-local, so that the
+    # process group's watchdog thread, which may query the events of
+    # earlier collectives meanwhile, cannot invalidate it; a synchronizing
+    # call in the captured step itself still fails the capture
+    _counted_kernels = _COUNTED_KERNELS + (ring_fold,)
+    _capture_error_mode = "thread_local"
 
     def _resolved_strategy(self):
         return "sharded"
@@ -132,6 +140,18 @@ class ShardedGraphEmbedder(GraphEmbedderTorch):
 
     def _sync(self):
         super()._sync()
+        self._check_replica_gap()
+
+    def run_layout(self, num_iterations=100, block_size=10, progress=False):
+        """GraphEmbedderTorch.run_layout, then the replica-gap check (one
+        host read of the device-held gap per call under replay)."""
+        positions = super().run_layout(num_iterations, block_size, progress)
+        self._check_replica_gap()
+        return positions
+
+    def _check_replica_gap(self):
+        """Raises when this rank's own update left rank 0's by more than
+        REPLICA_GAP_LIMIT."""
         gap = self.replica_gap
         if gap > REPLICA_GAP_LIMIT:
             raise RuntimeError(

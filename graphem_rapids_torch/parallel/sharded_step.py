@@ -1,13 +1,18 @@
 """Edge-partitioned layout step over the ranks of a mesh.
 
-Counterpart of ``graphem_rapids_tpu/parallel/sharded_step.py``, row ref
-order. Every rank holds the replicated positions and runs this step; the
+Counterpart of ``graphem_rapids_tpu/parallel/sharded_step.py``, both ref
+orders. Every rank holds the replicated positions and runs this step; the
 work that scales with E is cut by rank:
 
 - spring forces: each rank gathers the neighbor-table rows of its n/ndev
   vertices (every bucket's row shard with the degree-binned tables), then a
   tiled all_gather assembles the (n, d) forces; without a table, a local
-  segment sum over the rank's edge shard and an all_reduce;
+  segment sum over the rank's edge shard and an all_reduce. Slot-major
+  tables (``ref_order='slot'``) ride transposed and column-sharded: the
+  rank gathers its vertices one table slot at a time, a (rows, d) gather
+  each, as the single-card slotwise ops do, and its local refs are
+  enumerated slot-major (bucket by bucket, s * loc + p; globally
+  roff + s * pad + rank * loc + p);
 - kNN refs: the rank's edge-midpoint tile, or with fused refs the slot
   midpoints of the same table gather (the overflow refs on rank 0 only);
 - kNN: a local top-kk of the replicated query midpoints against the tile,
@@ -15,7 +20,9 @@ work that scales with E is cut by rank:
   candidates and re-merge), 'all_to_all' (each rank merges the candidates of
   its S/ndev queries), 'ring' (query shards and running carries rotate
   around the ranks) or 'ring_pallas' (the bin-fold ring of
-  parallel/ring_binfold.py, whose per-hop fold is the CUDA kernel K3);
+  parallel/ring_binfold.py: on the cards one launch of the CUDA kernel K3
+  per step runs every hop and stores each carry into the right
+  neighbour's memory itself);
 - intersection repulsion and the standardization are replicated; with
   several ranks, rank 0's new positions are then broadcast, so positions
   stay bit-equal on every rank (the JAX step needs no broadcast: XLA sums
@@ -28,8 +35,12 @@ work that scales with E is cut by rank:
 Collectives per iteration: one tiled all_gather per spring block (or one
 all_reduce), then for the kNN merge two all_gathers ('all_gather'), one
 all_to_all pair and one all_gather ('all_to_all'), ndev point-to-point
-rotations and one all_gather ('ring'), or ndev - 1 carry transfers and one all_gather
-('ring_pallas'), then the positions' broadcast.
+rotations and one all_gather ('ring'), or one K3 launch, whose carries
+travel inside it, and one all_gather ('ring_pallas'), then the positions'
+broadcast. Every one of them is a NCCL call (or K3) on the rank's current
+stream, with no host wait (``Work.wait()`` of a NCCL work is a stream
+wait), so the step can be captured in a CUDA graph and replayed
+(ShardedGraphEmbedder.run_layout on the cards).
 
 The local top-k differs from the JAX package's, as the single-card engine's
 does: on a CUDA mesh it is the bin-fold kernel K1 when the tile is large
@@ -48,6 +59,7 @@ import torch
 
 from ..ops import knn_binfold as bf
 from ..ops.forces import (
+    REF_PAD_VALUE,
     _spring,
     apply_overflow_plan,
     intersection_forces,
@@ -57,7 +69,8 @@ from ..ops.forces import (
 from ..ops.knn import knn_chunked, squared_distances
 from ..ops.sampling import sample_indices
 from .mesh import EDGE_AXIS
-from .ring_binfold import ring_binfold_topk, ring_supported
+from .ring_binfold import check_ring_peers, ring_binfold_topk, \
+    ring_supported
 
 logger = logging.getLogger(__name__)
 
@@ -138,11 +151,6 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
         knn_comm = "all_gather"
     if knn_comm not in KNN_COMMS:
         raise ValueError(f"Unknown knn_comm: {knn_comm!r}")
-    if nb is not None and nb.get("ref_order") == "slot":
-        raise NotImplementedError(
-            "the sharded tier's slot-order tables are not ported yet "
-            "(ROADMAP Queue 1, item 5); use ref_order='row'"
-        )
     del packed_gather, axis_name
     dev = mesh.device
     n_devices = mesh.world_size
@@ -173,10 +181,18 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
             return x
         return x[rank * loc:(rank + 1) * loc]
 
+    def cols(x, loc):
+        """This rank's column shard of a transposed (slot-major) table."""
+        if n_devices == 1:
+            return x
+        return x[:, rank * loc:(rank + 1) * loc]
+
     step_ops = {}
     if n_devices > 1:
         step_ops["replica_gap"] = torch.zeros((), device=dev)
     binned = nb is not None and "buckets" in nb
+    # slot-major tables ride transposed, (cap, rows), and column-sharded
+    slot_order = nb is not None and nb.get("ref_order") == "slot"
     ov_plan = None
     SL = O2 = 0
     if binned:
@@ -194,12 +210,20 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
             })
         btables, bowns = [], []
         for gm, b in zip(geoms, nb["buckets"]):
-            t = np.asarray(b["table"])
-            if gm["pad"] != gm["count"]:
-                t = np.concatenate([
-                    t, np.full((gm["pad"] - gm["count"], gm["cap"]),
-                               gm["start"], np.int32)
-                ])
+            if slot_order:
+                t = np.asarray(b["table_t"])  # (cap, count): pad columns
+                if gm["pad"] != gm["count"]:
+                    t = np.concatenate([
+                        t, np.full((gm["cap"], gm["pad"] - gm["count"]),
+                                   gm["start"], np.int32)
+                    ], axis=1)
+            else:
+                t = np.asarray(b["table"])
+                if gm["pad"] != gm["count"]:
+                    t = np.concatenate([
+                        t, np.full((gm["pad"] - gm["count"], gm["cap"]),
+                                   gm["start"], np.int32)
+                    ])
             btables.append(put(t))
             # a rank's bucket rows are a contiguous range of positions; an
             # index array is kept only where the padded range would run
@@ -233,25 +257,41 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
         if fused_refs:
             # local ref tile: bucket segments of loc_g * rc_g slots (rc_g > 0
             # buckets only), then the overflow block; the global padded ref
-            # space has pad_g * rc_g slots per bucket
+            # space has pad_g * rc_g slots per bucket. Slot order enumerates
+            # a segment s * loc_g + p (globally roff_g + s * pad_g + p over
+            # the padded rows), so its (rc, count) blocks pad columns
             ref_edge_all = np.asarray(nb["ref_edge"])
             ref_valid_all = np.asarray(nb["ref_valid"])
             bref_valid, re_parts = [], []
-            seg_meta = []  # (seg_off_local, seg_len_local, roff_global)
+            # (seg_off_local, seg_len_local, roff_global, loc, pad)
+            seg_meta = []
             seg_off = roff = ref_off = 0
             for gm in geoms:
                 rc, cnt, loc = gm["rc"], gm["count"], gm["loc"]
                 if rc == 0:
                     continue
-                rv = ref_valid_all[ref_off:ref_off + cnt * rc].reshape(cnt, rc)
-                re = ref_edge_all[ref_off:ref_off + cnt * rc].reshape(cnt, rc)
-                if gm["pad"] != cnt:
-                    z = gm["pad"] - cnt
-                    rv = np.concatenate([rv, np.zeros((z, rc), bool)])
-                    re = np.concatenate([re, np.zeros((z, rc), np.int32)])
+                z = gm["pad"] - cnt
+                if slot_order:
+                    rv = ref_valid_all[ref_off:ref_off + cnt * rc].reshape(
+                        rc, cnt)
+                    re = ref_edge_all[ref_off:ref_off + cnt * rc].reshape(
+                        rc, cnt)
+                    if z:
+                        rv = np.concatenate([rv, np.zeros((rc, z), bool)],
+                                            axis=1)
+                        re = np.concatenate(
+                            [re, np.zeros((rc, z), np.int32)], axis=1)
+                else:
+                    rv = ref_valid_all[ref_off:ref_off + cnt * rc].reshape(
+                        cnt, rc)
+                    re = ref_edge_all[ref_off:ref_off + cnt * rc].reshape(
+                        cnt, rc)
+                    if z:
+                        rv = np.concatenate([rv, np.zeros((z, rc), bool)])
+                        re = np.concatenate([re, np.zeros((z, rc), np.int32)])
                 bref_valid.append(torch.as_tensor(rv, device=dev))
                 re_parts.append(re.reshape(-1))
-                seg_meta.append((seg_off, loc * rc, roff))
+                seg_meta.append((seg_off, loc * rc, roff, loc, gm["pad"]))
                 seg_off += loc * rc
                 roff += gm["pad"] * rc
                 ref_off += cnt * rc
@@ -269,14 +309,22 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
     elif nb is not None:
         n_loc = (n + n_devices - 1) // n_devices
         n_pad = n_loc * n_devices
-        table = np.asarray(nb["table"])
-        D_tbl = table.shape[1]
-        # pad rows (vertices >= n) gather row 0; the [:n] slice after the
-        # all_gather drops their forces
-        if n_pad != n:
-            table = np.concatenate([table, np.zeros((n_pad - n, D_tbl),
-                                                    np.int32)])
-        step_ops["table_pad"] = put(table)
+        # pad rows (vertices >= n; columns of a slot-major table) gather
+        # row 0; the [:n] slice after the all_gather drops their forces
+        if slot_order:
+            table_t = np.asarray(nb["table_t"])  # (D, n)
+            D_tbl = table_t.shape[0]
+            if n_pad != n:
+                table_t = np.concatenate(
+                    [table_t, np.zeros((D_tbl, n_pad - n), np.int32)], axis=1)
+            step_ops["table_t_pad"] = put(table_t)
+        else:
+            table = np.asarray(nb["table"])
+            D_tbl = table.shape[1]
+            if n_pad != n:
+                table = np.concatenate([table, np.zeros((n_pad - n, D_tbl),
+                                                        np.int32)])
+            step_ops["table_pad"] = put(table)
         step_ops["own_pad"] = put(np.concatenate(
             [np.arange(n, dtype=np.int32), np.zeros(n_pad - n, np.int32)]
         )) if (n_devices > 1 and n_pad != n) else None
@@ -298,15 +346,30 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
             fused_refs = on_cuda and E > 0 and n_ref_slots <= 4 * E
         if fused_refs:
             SL = n_loc * ref_cap  # per-rank slot-ref count
-            rv = np.asarray(nb["ref_valid"]).reshape(n, ref_cap)
-            re_slots = np.asarray(nb["ref_edge"][:n * ref_cap]).reshape(
-                n, ref_cap
-            )
-            if n_pad != n:
-                rv = np.concatenate([rv, np.zeros((n_pad - n, ref_cap), bool)])
-                re_slots = np.concatenate(
-                    [re_slots, np.zeros((n_pad - n, ref_cap), np.int32)]
+            if slot_order:
+                # slot-major refs s * n + v: (ref_cap, n), pad columns; the
+                # global padded slot is s * n_pad + v
+                rv = np.asarray(nb["ref_valid"][:n * ref_cap]).reshape(
+                    ref_cap, n)
+                re_slots = np.asarray(nb["ref_edge"][:n * ref_cap]).reshape(
+                    ref_cap, n)
+                if n_pad != n:
+                    rv = np.concatenate(
+                        [rv, np.zeros((ref_cap, n_pad - n), bool)], axis=1)
+                    re_slots = np.concatenate(
+                        [re_slots, np.zeros((ref_cap, n_pad - n), np.int32)],
+                        axis=1)
+            else:
+                rv = np.asarray(nb["ref_valid"]).reshape(n, ref_cap)
+                re_slots = np.asarray(nb["ref_edge"][:n * ref_cap]).reshape(
+                    n, ref_cap
                 )
+                if n_pad != n:
+                    rv = np.concatenate([rv, np.zeros((n_pad - n, ref_cap),
+                                                      bool)])
+                    re_slots = np.concatenate(
+                        [re_slots, np.zeros((n_pad - n, ref_cap), np.int32)]
+                    )
             step_ops["ref_valid_pad"] = torch.as_tensor(rv, device=dev)
             # vertex-pad slots map to edge 0 (they sit at REF_PAD distance);
             # the overflow refs live at [n_pad * ref_cap, +O2)
@@ -333,21 +396,77 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
                 "knn_comm='ring'", R_probe, S, n_devices, k_merge_probe,
             )
             knn_comm = "ring"
+    if knn_comm == "ring_pallas":
+        # K3 stores each carry into the right neighbour's card: raises
+        # where a neighbour has no peer access (never a silent NCCL path)
+        check_ring_peers(mesh)
+
+    def own_rows(positions, ops, g=None):
+        """This rank's own vertex rows: of bucket ``g``, or of the flat
+        table."""
+        if g is None:
+            if n_devices == 1:
+                return positions
+            if ops["own_pad"] is None:
+                return positions[rank * n_loc:(rank + 1) * n_loc]
+            return positions[rows(ops["own_pad"], n_loc)]
+        gm = geoms[g]
+        if n_devices == 1:
+            return positions[gm["start"]:gm["start"] + gm["count"]]
+        if ops["bowns"][g] is None:
+            lo = gm["start"] + rank * gm["loc"]
+            return positions[lo:lo + gm["loc"]]
+        return positions[rows(ops["bowns"][g], gm["loc"])]
+
+    def slot_pass(positions, pv, tt_loc, rv_loc, rc, mids):
+        """The spring sum of ``pv``'s rows over the slots of a slot-major
+        table shard, one (rows, d) gather per slot; the first ``rc`` slots'
+        midpoints (REF_PAD where ``rv_loc`` is False) are appended to
+        ``mids`` when ``rv_loc`` is given."""
+        acc = torch.zeros_like(pv)
+        pad = torch.full((), REF_PAD_VALUE, dtype=pv.dtype, device=pv.device)
+        for s in range(tt_loc.shape[0]):
+            pn_s = positions[tt_loc[s]]
+            acc = acc + _spring(pn_s - pv, k_attr, L_min)
+            if rv_loc is not None and s < rc:
+                mids.append(torch.where(rv_loc[s][:, None], (pv + pn_s) * 0.5,
+                                        pad))
+        return acc
 
     def spring_pass(positions, ops, p1, p2, valid_loc, edges_loc):
-        """(spring (n, d), per-bucket (pv, pn) or the flat (pv, pn))."""
+        """(spring (n, d), per-bucket (pv, pn), the flat (pv, pn), or with
+        slot-major tables the fused refs' midpoint blocks)."""
         d = positions.shape[1]
-        if binned:
+        if binned and slot_order:
+            blocks, mids = [], []
+            bidx = 0
+            for g, gm in enumerate(geoms):
+                if gm["cap"] == 0:
+                    blocks.append(positions.new_zeros((gm["count"], d)))
+                    continue
+                rvg = None
+                if fused_refs and gm["rc"] > 0:
+                    rvg = cols(ops["bref_valid"][bidx], gm["loc"])
+                    bidx += 1
+                acc = slot_pass(positions, own_rows(positions, ops, g),
+                                cols(ops["btables"][g], gm["loc"]), rvg,
+                                gm["rc"], mids)
+                blocks.append(mesh.all_gather_tiled(acc)[:gm["count"]])
+            spring = torch.cat(blocks, dim=0)
+            gathered = mids
+        elif slot_order and nb is not None:
+            mids = []
+            rv_loc = cols(ops["ref_valid_pad"], n_loc) if fused_refs else None
+            acc = slot_pass(positions, own_rows(positions, ops),
+                            cols(ops["table_t_pad"], n_loc), rv_loc, ref_cap,
+                            mids)
+            spring = mesh.all_gather_tiled(acc)[:n]
+            gathered = mids
+        elif binned:
             blocks, gathered = [], []
             for g, gm in enumerate(geoms):
                 png = positions[rows(ops["btables"][g], gm["loc"])]
-                if n_devices == 1:
-                    pvg = positions[gm["start"]:gm["start"] + gm["count"]]
-                elif ops["bowns"][g] is None:
-                    lo = gm["start"] + rank * gm["loc"]
-                    pvg = positions[lo:lo + gm["loc"]]
-                else:
-                    pvg = positions[rows(ops["bowns"][g], gm["loc"])]
+                pvg = own_rows(positions, ops, g)
                 gathered.append((pvg, png))
                 if gm["cap"] == 0:
                     # isolated vertices: zero spring force, no collective
@@ -358,12 +477,7 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
             spring = torch.cat(blocks, dim=0)
         elif nb is not None:
             pn = positions[rows(ops["table_pad"], n_loc)]  # (n_loc, D, d)
-            if n_devices == 1:
-                pv = positions
-            elif ops["own_pad"] is None:
-                pv = positions[rank * n_loc:(rank + 1) * n_loc]
-            else:
-                pv = positions[rows(ops["own_pad"], n_loc)]
+            pv = own_rows(positions, ops)
             spring_loc = _spring(pn - pv[:, None, :], k_attr, L_min).sum(dim=1)
             spring = mesh.all_gather_tiled(spring_loc)[:n]
             gathered = (pv, pn)
@@ -388,7 +502,9 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
 
     def ref_tile(positions, ops, gathered, p1, p2, valid_loc):
         """This rank's kNN ref tile (R_loc, d)."""
-        if fused_refs and binned:
+        if fused_refs and slot_order:
+            mid_loc = torch.cat(gathered, dim=0)  # the slot pass's blocks
+        elif fused_refs and binned:
             mids = []
             for g, gm in enumerate(geoms):
                 if gm["rc"] == 0:
@@ -419,11 +535,22 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
         ref space (``owner`` an int or a tensor like ``idx_t``)."""
         if fused_refs and binned:
             idx_glob = idx_t - SL + G_total  # the overflow block
-            for seg_off_g, seg_len_g, roff_g in seg_meta:
+            for seg_off_g, seg_len_g, roff_g, loc_g, pad_g in seg_meta:
                 in_seg = (idx_t >= seg_off_g) & (idx_t < seg_off_g + seg_len_g)
-                cand = idx_t - seg_off_g + roff_g + owner * seg_len_g
+                if slot_order:
+                    u = idx_t - seg_off_g
+                    cand = (roff_g + torch.div(u, loc_g, rounding_mode="floor")
+                            * pad_g + owner * loc_g + u % loc_g)
+                else:
+                    cand = idx_t - seg_off_g + roff_g + owner * seg_len_g
                 idx_glob = torch.where(in_seg, cand, idx_glob)
             return idx_glob
+        if fused_refs and slot_order:
+            return torch.where(
+                idx_t < SL,
+                torch.div(idx_t, n_loc, rounding_mode="floor") * n_pad
+                + owner * n_loc + idx_t % n_loc,
+                idx_t - SL + n_pad * ref_cap)
         if fused_refs:
             return torch.where(idx_t < SL, idx_t + owner * SL,
                                idx_t - SL + n_pad * ref_cap)

@@ -23,7 +23,11 @@ one hop, which makes its own scratch) is timed at the one-rank 1M shape
 (S_loc=512 against the same 5,699,741 refs, no carry), on 64 of those
 queries, and on the last of four tiles of those refs (the four-card tile,
 S_loc=128, E_loc=1,424,936, offset 3 * R_pad) merged in place into a
-carry folded from the third tile, as the ring's later hops do.
+carry folded from the third tile, as the ring's later hops do. Where the
+checkout has K3's whole-ring entry (``ring_run_cuda``, one launch per
+ring), it is timed too as a ring of one rank at the one-rank 1M shape and
+on the four-card tile (no carry), beside the per-hop entry at the same
+shapes (``ring_binfold_hop``).
 """
 
 import argparse
@@ -121,7 +125,35 @@ def main(argv):
                    repo=repo, kernel="ring_binfold", shape=label,
                    S_loc=q.shape[0], E_loc=r.shape[0], R_pad=ns_ * G_ * T_,
                    offset=offset, carry=c is not None)
+        if hasattr(rb, "ring_run_cuda"):
+            _time_whole_ring(rb, q512, r1m, t4[3])
     return 0
+
+
+def _time_whole_ring(rb, q512, r1m, tile4):
+    """K3's whole-ring entry as a ring of one rank, and the per-hop entry
+    on the same inputs, at the one-rank 1M shape and on the four-card
+    tile."""
+    from graphem_rapids_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(1, 0, q512.device)
+    for label, q, r in (("1m_1rank_512q", q512, r1m),
+                        ("4card_tile_1rank", q512[:128], tile4)):
+        S = q.shape[0]
+        T, G, n_super, R_pad, _, _, _ = rb._geometry(r.shape[0], S, 1, 16,
+                                                     0.95)
+        region = rb.ring_region(mesh, S, 3, G, n_super)
+        out = (torch.empty((S, G * 128), device=q.device),
+               torch.empty((S, G * 128), dtype=torch.int32, device=q.device))
+        scratch = rb.ring_fold_scratch(S, 3, G, n_super, q.device)
+        _timed(lambda: rb.ring_run_cuda(q, r, region, out, 0, 1, (0, 1), T, G,
+                                        n_super, R_pad),
+               kernel="ring_binfold_whole_ring", shape=label, S_loc=S,
+               E_loc=r.shape[0], blocks=region.made_for[5])
+        _timed(lambda: rb.ring_fold_cuda(q, r, None, 0, T, G, n_super,
+                                         scratch=scratch),
+               kernel="ring_binfold_hop", shape=label, S_loc=S,
+               E_loc=r.shape[0])
 
 
 if __name__ == "__main__":

@@ -241,11 +241,13 @@ def test_factory_defaults_and_options(caplog):
 
 @pytest.mark.fast
 def test_factory_sharded_raises():
-    """The sharded tier is ported; what it leaves out still raises."""
+    """The sharded tier is ported; what it leaves out still raises.
+    ref_order='slot' is ported to it too (tests/test_torch_sharded.py holds
+    it against JAX): the factory builds it."""
     adj = _ring(100)
-    with pytest.raises(NotImplementedError, match="slot"):
-        grt.create_graphem(adj, backend="sharded", device="cpu",
-                           ref_order="slot")
+    emb = grt.create_graphem(adj, backend="sharded", device="cpu",
+                             ref_order="slot", verbose=False, init="random")
+    assert emb.ref_order == "slot" and "table_t_pad" in emb._step_ops
     with pytest.raises(ValueError, match="knn_comm"):
         grt.create_graphem(adj, backend="sharded", device="cpu",
                            knn_comm="nccl")

@@ -13,7 +13,9 @@ rank's own update must equal rank 0's before the broadcast that makes
 positions equal (a replica gap of exactly 0 on the CPU), run_layout must
 draw one sample on every rank, and ranks given different samples must be
 caught. The 'ring_pallas' neighbour sets (``_debug_knn``) must equal JAX's,
-whose Pallas ring runs in interpret mode off the TPU. The row-sharded
+whose Pallas ring runs in interpret mode off the TPU. Slot-order tables
+(``ref_order='slot'``, flat and binned) run the same checks, and the exact
+merges' neighbour sets with slot order equal those with row order. The row-sharded
 Chebyshev init must equal the single-rank runner and JAX's mesh modulo
 column signs. One-rank meshes, without a process group, run in the test
 process.
@@ -81,6 +83,23 @@ VARIANTS = {
     "hub_binned_fused_all_to_all": ("hub", dict(binned_table=True,
                                                 fused_midpoints=True,
                                                 knn_comm="all_to_all")),
+    # slot-major tables: transposed, column-sharded, slot-major local refs
+    "flat_slot_unfused": ("regular", dict(ref_order="slot")),
+    "flat_slot": ("regular", dict(ref_order="slot", fused_midpoints=True)),
+    "flat_slot_ring": ("regular", dict(ref_order="slot", fused_midpoints=True,
+                                       knn_comm="ring")),
+    "flat_slot_all_to_all": ("regular", dict(ref_order="slot",
+                                             fused_midpoints=True,
+                                             knn_comm="all_to_all")),
+    "hub_binned_slot": ("hub", dict(binned_table=True, fused_midpoints=True,
+                                    ref_order="slot")),
+    "hub_binned_slot_ring": ("hub", dict(binned_table=True,
+                                         fused_midpoints=True,
+                                         ref_order="slot", knn_comm="ring")),
+    "hub_binned_slot_all_to_all": ("hub", dict(binned_table=True,
+                                               fused_midpoints=True,
+                                               ref_order="slot",
+                                               knn_comm="all_to_all")),
 }
 # knn_comm variants and the all_gather variant they must equal bit for bit
 SAME_AS = {
@@ -88,9 +107,20 @@ SAME_AS = {
     "flat_all_to_all": "flat_all_gather",
     "hub_binned_fused_ring": "hub_binned_fused",
     "hub_binned_fused_all_to_all": "hub_binned_fused",
+    "flat_slot_ring": "flat_slot",
+    "flat_slot_all_to_all": "flat_slot",
+    "hub_binned_slot_ring": "hub_binned_slot",
+    "hub_binned_slot_all_to_all": "hub_binned_slot",
 }
-# ring_pallas _debug_knn cases: (graph, fused refs)
-KNN_CASES = {"knn_unfused": ("regular", False), "knn_fused": ("regular", True)}
+# ring_pallas _debug_knn cases: (graph, fused refs, ref order)
+KNN_CASES = {"knn_unfused": ("regular", False, "row"),
+             "knn_fused": ("regular", True, "row"),
+             "knn_slot_fused": ("regular", True, "slot")}
+# the exact merges' _debug_knn neighbour sets with fused refs in both ref
+# orders: (ref order, knn_comm)
+ORDER_KNN_CASES = {f"knn_{order}_{comm}": (order, comm)
+                   for order in ("row", "slot")
+                   for comm in ("all_gather", "all_to_all", "ring")}
 # use_approx_local=True steps through build_sharded_step: (fused refs,
 # knn_comm); JAX's ShardedGraphEmbedder takes no use_approx_local either
 APPROX_LOCAL_CASES = {"approx_local": (False, "all_gather"),
@@ -105,7 +135,9 @@ CHEB_CASES = {
 }
 # two ranks, where each rank's left and right neighbour are the same peer
 TWO_RANK_VARIANTS = ("flat_all_gather", "flat_ring", "hub_binned_fused",
-                     "hub_binned_fused_all_to_all")
+                     "hub_binned_fused_all_to_all", "flat_slot",
+                     "flat_slot_ring", "hub_binned_slot",
+                     "hub_binned_slot_all_to_all")
 
 
 def cheb_graph(name):
@@ -138,14 +170,14 @@ def _engine_edges(adj):
     return np.column_stack([rows[mask], cols[mask]]).astype(np.int64)
 
 
-def _debug_knn_inputs(graph):
+def _debug_knn_inputs(graph, ref_order="row"):
     """(n, E, edges, flat table, positions, sample) of a _debug_knn case."""
     from graphem_rapids_torch.ops.forces import build_neighbor_table
 
     adj = GRAPHS[graph]()
     edges = _engine_edges(adj)
     n, E = adj.shape[0], len(edges)
-    nb = build_neighbor_table(edges, n)
+    nb = build_neighbor_table(edges, n, ref_order=ref_order)
     return n, E, edges, nb, start_positions(n), samples(E, steps=1)[0]
 
 
@@ -155,9 +187,11 @@ def _approx_local_kw(fused, knn_comm):
                 fused_refs=fused, use_approx_local=True, return_raw=True)
 
 
-def _debug_knn_kw(fused):
+def _debug_knn_kw(fused, knn_comm="ring_pallas", sample_size=128):
+    """The ring_pallas cases take the sample's length from the queries; the
+    exact merges' shards need ``sample_size`` equal to it."""
     return dict(n_components=3, k_attr=0.2, L_min=1.0, k_inter=0.5,
-                n_neighbors=8, sample_size=128, knn_comm="ring_pallas",
+                n_neighbors=8, sample_size=sample_size, knn_comm=knn_comm,
                 fused_refs=fused, _debug_knn=True, return_raw=True)
 
 
@@ -236,11 +270,16 @@ def worker(rank, world, store, out):
         res["diverged/raised"] = np.array(False)
     except RuntimeError:
         res["diverged/raised"] = np.array(True)
-    for name, (graph, fused) in KNN_CASES.items():
-        n, E, edges, nb, pos, sampled = _debug_knn_inputs(graph)
+    knn_cases = {name: (graph, fused, order, "ring_pallas")
+                 for name, (graph, fused, order) in KNN_CASES.items()}
+    knn_cases.update({name: ("regular", True, order, comm)
+                      for name, (order, comm) in ORDER_KNN_CASES.items()})
+    for name, (graph, fused, order, comm) in knn_cases.items():
+        n, E, edges, nb, pos, sampled = _debug_knn_inputs(graph, order)
         edges_p, valid = pad_edges(edges, world)
         _, _, ops, raw = build_sharded_step(
-            mesh, n, E, nb=nb, **_debug_knn_kw(fused))
+            mesh, n, E, nb=nb, **_debug_knn_kw(
+                fused, comm, 128 if comm == "ring_pallas" else len(sampled)))
         knn_idx, _ = raw(torch.from_numpy(pos), torch.from_numpy(
             edges_p).long(), torch.from_numpy(valid),
             torch.from_numpy(sampled), ops)
@@ -337,6 +376,7 @@ def test_gloo_matches_jax_mesh(gloo, name):
 
 @pytest.mark.fast
 @pytest.mark.parametrize("name", list(VARIANTS) + list(KNN_CASES)
+                         + list(ORDER_KNN_CASES)
                          + list(APPROX_LOCAL_CASES) + list(CHEB_CASES)
                          + ["ckpt/resumed", "run_layout",
                             "run_layout/next_sample", "cheb_embedder"])
@@ -373,6 +413,15 @@ def test_gloo_merges_bit_equal_all_gather(gloo, name):
     np.testing.assert_array_equal(gloo[0][name], gloo[0][SAME_AS[name]])
 
 
+@pytest.mark.fast
+@pytest.mark.parametrize("comm", ["all_gather", "all_to_all", "ring"])
+def test_gloo_slot_order_knn_sets_equal_row_order(gloo, comm):
+    """With fused refs, slot order enumerates the refs in another order;
+    the exact merges' neighbour edge sets are the same."""
+    np.testing.assert_array_equal(np.sort(gloo[0][f"knn_slot_{comm}"], axis=1),
+                                  np.sort(gloo[0][f"knn_row_{comm}"], axis=1))
+
+
 def _jax_ring_pallas(case, world):
     jax = pytest.importorskip("jax")
     import jax.numpy as jnp
@@ -380,8 +429,8 @@ def _jax_ring_pallas(case, world):
     from graphem_rapids_tpu.parallel import build_sharded_step, make_mesh
     from graphem_rapids_tpu.parallel.sharded_step import pad_edges
 
-    graph, fused = KNN_CASES[case]
-    n, E, edges, nb, pos, sampled = _debug_knn_inputs(graph)
+    graph, fused, order = KNN_CASES[case]
+    n, E, edges, nb, pos, sampled = _debug_knn_inputs(graph, order)
     edges_p, valid = pad_edges(edges, world)
     _, _, ops, raw = build_sharded_step(make_mesh(world), n, E, nb=nb,
                                         **_debug_knn_kw(fused))
@@ -476,7 +525,8 @@ def test_gloo_sharded_embedder_chebyshev_init(gloo):
 
 @pytest.mark.fast
 @pytest.mark.parametrize("check", ["ranks_equal", "ring_pallas", "merges",
-                                   "jax"])
+                                   "jax", "slot_ring_pallas", "slot_merges",
+                                   "slot_jax"])
 def test_gloo_two_ranks(gloo2, check):
     """Two ranks: each rank sends right and receives from the left, the
     same peer, in one batch."""
@@ -491,6 +541,20 @@ def test_gloo_two_ranks(gloo2, check):
                                       gloo2[0]["flat_all_gather"])
         np.testing.assert_array_equal(gloo2[0]["hub_binned_fused_all_to_all"],
                                       gloo2[0]["hub_binned_fused"])
+    elif check == "slot_ring_pallas":
+        np.testing.assert_array_equal(
+            np.sort(gloo2[0]["knn_slot_fused"], axis=1),
+            _jax_ring_pallas("knn_slot_fused", 2))
+    elif check == "slot_merges":
+        np.testing.assert_array_equal(gloo2[0]["flat_slot_ring"],
+                                      gloo2[0]["flat_slot"])
+        np.testing.assert_array_equal(gloo2[0]["hub_binned_slot_all_to_all"],
+                                      gloo2[0]["hub_binned_slot"])
+    elif check == "slot_jax":
+        for name in ("flat_slot", "hub_binned_slot"):
+            ref = _jax_variant(*VARIANTS[name], world=2)
+            np.testing.assert_allclose(gloo2[0][name], ref.positions,
+                                       rtol=1e-4, atol=1e-5)
     else:
         ref = _jax_variant(*VARIANTS["hub_binned_fused"], world=2)
         np.testing.assert_allclose(gloo2[0]["hub_binned_fused"],
@@ -676,9 +740,13 @@ def test_unported_options_raise():
     )
     from graphem_rapids_torch.parallel.sharded_step import build_sharded_step
 
+    from graphem_rapids_torch.ops.forces import build_neighbor_table
+
     adj = regular_graph(n=60)
-    with pytest.raises(NotImplementedError, match="slot"):
-        ShardedGraphEmbedder(adj, device="cpu", ref_order="slot", **PARAMS)
+    # ref_order='slot' is ported (the gloo cases above hold it against
+    # JAX): the engine and the step build
+    emb = ShardedGraphEmbedder(adj, device="cpu", ref_order="slot", **PARAMS)
+    assert emb.ref_order == "slot" and "table_t_pad" in emb._step_ops
     kw = dict(n_components=3, k_attr=0.5, L_min=10.0, k_inter=0.1,
               n_neighbors=5, sample_size=16)
     mesh = make_mesh(device="cpu")
@@ -687,8 +755,11 @@ def test_unported_options_raise():
     step, multi, ops = build_sharded_step(mesh, 60, 90,
                                           use_approx_local=True, **kw)
     assert callable(step) and callable(multi)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        build_sharded_step(mesh, 60, 90, nb={"ref_order": "slot"}, **kw)
+    edges = _engine_edges(adj)
+    step, multi, ops = build_sharded_step(
+        mesh, 60, len(edges), nb=build_neighbor_table(edges, 60,
+                                                      ref_order="slot"), **kw)
+    assert callable(step) and callable(multi) and "table_t_pad" in ops
     with pytest.raises(ValueError, match="knn_comm"):
         build_sharded_step(mesh, 60, 90, knn_comm="nccl", **kw)
     with pytest.raises(ValueError, match="knn_comm"):
