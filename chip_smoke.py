@@ -16,7 +16,8 @@
 Phases:
 1. device: the card's name, and its power limit and clocks from nvidia-smi;
 2. build: every kernel of graphem_rapids_torch/csrc, built from source,
-   one nvcc per source, all started together;
+   one nvcc per source, and the host helpers' library (csrc/fastgraph.c,
+   the host compiler), all started together;
 3. K1 against its plain version: the bin-fold kernel and its plain
    PyTorch version on the same inputs, at the main path's shapes (S=512,
    d=3, T=2048, G=24, against 800,000 and 5,699,741 refs, 1 in 40 at the
@@ -64,7 +65,10 @@ Phases:
    values, the SpMV's overflow form and the set-up's peak memory, and
    fails if the init tiered down), then run_layout(50); binned table +
    overflow plan. Both main paths fail if K1 runs at a shape that phase 3
-   did not check;
+   did not check. Each main_setup line also splits init_s into the edge
+   extraction, the tables, the spectral init, the step's upload and the
+   rest, counts the host helpers' calls (phase 21), and fails if the
+   extraction and the sorts did not run in C;
 7. quick start, both graphs: create_graphem(backend='cuvs') (the 'pallas'
    strategy, K2), run_layout(50) timed, graphem_seed_selection (20 more
    iterations), then estimated_influence of the seeds and of 10 random
@@ -188,7 +192,16 @@ Phases:
     with both ref orders on phase 9's graph, and 'ring_pallas' and
     'all_gather' on the 100K graph: after one iteration each, 5 replayed
     iterations against 5 of the eager loop from the same generator state,
-    in deterministic mode: samples and positions bit-equal.
+    in deterministic mode: samples and positions bit-equal;
+21. host prep, run after phase 10: the engine's host prep of the 100K
+    graph (flat table) and of the 1M graph (binned tables, 35,188
+    overflow pairs): the edge extraction and the table build with the
+    threaded C helpers of native/ and with their plain numpy versions, in
+    turns (plain, C, C, plain), each timed; every output array must be
+    equal in value and dtype between the two, the C runs must have called
+    each helper of their table kind and the plain runs none. The "host"
+    line gives the host CPU model, os.cpu_count(), the CPUs the process
+    may use and the helpers' thread count.
 
 Each main-path, quick-start, sharded and toolkit phase zeroes the kernels'
 launch counts just before its timed run and reads them just after. A
@@ -199,6 +212,7 @@ kernel summary {"kernels": [...]}; the last line is {"ok": true,
 """
 
 import contextlib
+import importlib
 import json
 import logging
 import os
@@ -796,6 +810,161 @@ def toolkit_k1_shape(grt):
     return emb.sample_size, int(refs), 3
 
 
+def assert_same(a, b, path):
+    """Equal in value, shape and dtype, through dicts, lists and tuples."""
+    if a is None or b is None:
+        if not (a is None and b is None):
+            raise AssertionError(f"{path}: one side is None")
+    elif isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{path}: keys {sorted(a)} != {sorted(b)}")
+        for key in a:
+            assert_same(a[key], b[key], f"{path}[{key!r}]")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{path}: lengths {len(a)} != {len(b)}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a,
+                                                                          b):
+            raise AssertionError(f"{path}: {a.dtype}{a.shape} differs from "
+                                 f"{b.dtype}{b.shape}")
+    elif a != b:
+        raise AssertionError(f"{path}: {a!r} != {b!r}")
+
+
+def cpu_model():
+    """The host CPU's model name, vendor, family and model number, from the
+    first processor of /proc/cpuinfo (a virtual machine may report the name
+    as 'unknown')."""
+    fields = {}
+    with open("/proc/cpuinfo", encoding="utf-8") as f:
+        for line in f:
+            if not line.strip():
+                break
+            key, _, value = line.partition(":")
+            fields[key.strip()] = value.strip()
+    return (f"{fields.get('model name')} ({fields.get('vendor_id')} family "
+            f"{fields.get('cpu family')} model {fields.get('model')})")
+
+
+def host_prep(adj, native):
+    """The engine's host prep: the edge extraction, then the table build
+    as GraphEmbedderTorch runs it on a card (binned, else flat, under K1's
+    ref budget), with the C helpers or (``native=False``) their plain
+    versions. Returns (edges, tables, seconds of each)."""
+    from graphem_rapids_torch.models.embedder import csr_upper_edges
+    from graphem_rapids_torch.ops import forces
+    from graphem_rapids_torch.ops import knn_binfold as bf
+
+    n, budget = adj.shape[0], bf.MAX_REFS_SEGMENTED - 1
+    t0 = time.perf_counter()
+    edges = csr_upper_edges(adj, native=native)
+    t1 = time.perf_counter()
+    nb = forces.build_neighbor_table_binned(edges, n, ref_budget=budget,
+                                            native=native)
+    if nb is None:
+        nb = forces.build_neighbor_table(edges, n, ref_budget=budget,
+                                         native=native)
+    return edges, nb, {"extract_s": t1 - t0,
+                       "tables_s": time.perf_counter() - t1}
+
+
+# the C helpers each table kind's build goes through (with the extraction)
+HOST_HELPERS = {
+    "flat": ("csr_lt_edges_native", "radix_argsort_native",
+             "scatter_ranks_native"),
+    "binned": ("csr_lt_edges_native", "radix_argsort_native",
+               "scatter_ranks_native", "apply_perm_minmax_native",
+               "permute_pairs_native"),
+}
+
+
+def helper_calls(fg):
+    return {fn.__name__: fn.calls for fn in fg.NATIVE}
+
+
+def phase_host_prep(graphs):
+    """Phase 21: the host prep of both graphs with the C helpers and with
+    their plain versions, in turns (plain, C, C, plain): every output array
+    equal in value and dtype, the helpers of the table kind called on the
+    C runs and none on the plain ones."""
+    from graphem_rapids_torch import native as fg
+
+    threads = fg._nthreads(None)
+    emit("host", cpu_model=cpu_model(), cpu_count=os.cpu_count(),
+         affinity=len(os.sched_getaffinity(0)), threads=threads,
+         library=str(fg.library()._name))
+    for label, adj, expect_table in graphs:
+        secs = {True: [], False: []}
+        outs = {}
+        for native in (False, True, True, False):
+            for fn in fg.NATIVE:
+                fn.calls = 0
+            edges, nb, t = host_prep(adj, native)
+            calls = helper_calls(fg)
+            secs[native].append(t)
+            outs[native] = (edges, nb)
+            kind = "binned" if "buckets" in nb else "flat"
+            if native:
+                missing = [h for h in HOST_HELPERS[kind] if not calls[h]]
+                if missing:
+                    raise AssertionError(f"{label}: the C helpers {missing} "
+                                         "did not run")
+                native_calls = calls
+            elif any(calls.values()):
+                raise AssertionError(f"{label}: the plain path called the C "
+                                     f"helpers: {calls}")
+        assert_same(outs[True], outs[False], label)
+        emit("host_prep", graph=label, n=adj.shape[0], E=len(edges),
+             table=kind, overflow_pairs=int(len(nb["overflow"])),
+             threads=threads, calls=native_calls,
+             native_extract_s=[t["extract_s"] for t in secs[True]],
+             plain_extract_s=[t["extract_s"] for t in secs[False]],
+             native_tables_s=[t["tables_s"] for t in secs[True]],
+             plain_tables_s=[t["tables_s"] for t in secs[False]])
+        if kind != expect_table:
+            raise AssertionError(f"{label}: table {kind}, expected "
+                                 f"{expect_table}")
+
+
+@contextlib.contextmanager
+def setup_split():
+    """Seconds of GraphEmbedderTorch's set-up stages inside: the edge
+    extraction, the tables, the spectral init and the step's upload
+    (_build_step)."""
+    from graphem_rapids_torch.models import embedder as em
+
+    secs = dict(extract_s=0.0, tables_s=0.0, spectral_s=0.0, upload_s=0.0)
+    stages = {"csr_upper_edges": "extract_s",
+              "build_neighbor_table_binned": "tables_s",
+              "build_neighbor_table": "tables_s",
+              "spectral_init": "spectral_s"}
+    saved = {name: getattr(em, name) for name in stages}
+    build_step = em.GraphEmbedderTorch._build_step
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                secs[key] += time.perf_counter() - t0
+        return call
+
+    for name, key in stages.items():
+        setattr(em, name, timed(saved[name], key))
+    em.GraphEmbedderTorch._build_step = timed(build_step, "upload_s")
+    try:
+        yield secs
+    finally:
+        for name, fn in saved.items():
+            setattr(em, name, fn)
+        em.GraphEmbedderTorch._build_step = build_step
+
+
 def chebyshev_fields(log, label, expected):
     """The Chebyshev tier's seconds and Ritz values from its log record;
     fails on a tier-down, or if the tier ran other than ``expected``
@@ -816,12 +985,20 @@ def phase_main(grt, bf, label, adj, expect_table, init, warmup, profile,
     """Phases 5/6 (and 18 with ref_order='slot'): construct, warm up (the
     first iteration, then the capture of the replayed graph), then the
     timed run_layout."""
+    from graphem_rapids_torch import native as fg
+
+    for fn in fg.NATIVE:
+        fn.calls = 0
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    emb = grt.GraphEmbedderTorch(adj, n_components=3, seed=0, verbose=False,
-                                 init=init, **FORCE_PARAMS, **engine_kw)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    with setup_split() as split:
+        t0 = time.perf_counter()
+        emb = grt.GraphEmbedderTorch(adj, n_components=3, seed=0,
+                                     verbose=False, init=init,
+                                     **FORCE_PARAMS, **engine_kw)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+    split["other_s"] = init_s - sum(split.values())
+    calls = helper_calls(fg)
     device_tier = init == "chebyshev" or (init == "auto"
                                           and emb.n >= 500_000)
     emit("main_setup", graph=label, n=emb.n, E=emb.n_edges,
@@ -830,9 +1007,12 @@ def phase_main(grt, bf, label, adj, expect_table, init, warmup, profile,
          fused_refs=emb._fused_refs_active,
          refs=int(len(emb._nb["ref_edge"])),
          overflow_pairs=int(len(emb._nb["overflow"])), init=init,
-         init_s=init_s,
+         init_s=init_s, split=split, native_calls=calls,
          setup_peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
          **chebyshev_fields(log, label, int(device_tier)))
+    if not (calls["csr_lt_edges_native"] and calls["radix_argsort_native"]):
+        raise AssertionError(f"{label}: the set-up did not run the C "
+                             f"helpers: {calls}")
     if emb.table_kind != expect_table:
         raise AssertionError(f"{label}: table {emb.table_kind}, "
                              f"expected {expect_table}")
@@ -1012,8 +1192,8 @@ def phase_approx(grt, bf, kp, label, adj, init, warmup):
     """Phase 17: n_neighbors=48 (k+1 = 49 > the bin fold's MAX_K), so the
     engine resolves 'approx'; run_layout(50) under replay with no K1 or
     K2 launch, then one iteration's queries against knn_exact."""
-    from graphem_rapids_torch.ops import knn as tk
-
+    # the ops package binds the name knn to the function, as JAX's does
+    tk = importlib.import_module("graphem_rapids_torch.ops.knn")
     params = dict(FORCE_PARAMS, n_neighbors=48)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1961,7 +2141,10 @@ def main(argv):
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    report = _build.build(force=True)
+    # every kernel and the host helpers' library, all compiled at once
+    report = _build.build(
+        sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu")) + ["fastgraph"],
+        force=True)
     emit("build", seconds=time.perf_counter() - t0,
          kernels={k: {"seconds": v["seconds"],
                       "ptxas": [ln.strip() for ln in v["log"].splitlines()
@@ -1983,6 +2166,8 @@ def main(argv):
     phase_transfer(rb)
     log = spectral_log()
     adj100k, adj1m = regular_union_graph(100_000), ring_chords_graph()
+    phase_host_prep([("random_8_regular_100k", adj100k, "flat"),
+                     ("ring_chords_1m", adj1m, "binned")])
     starts = phase_spectral(log, [
         ("ring_chords_100k", ring_chords_graph(100_000, 300_000), "eigsh"),
         ("hub_chords_100k", hub_chords_graph(), "block_plan"),

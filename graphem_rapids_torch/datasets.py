@@ -5,10 +5,11 @@ the vendored classic graphs under benchmarks/data/vendored, Network
 Repository, Semantic Scholar), ``load_dataset`` with its prefix routing, and
 the same local cache (``GRAPHEM_DATA_DIR``, default ``data/`` at the repo
 root): a loader reads its cached files and downloads only when they are
-missing. Edge files are parsed with numpy and the standard library (gzip
-and csv), where the JAX package uses pandas and its native scanner;
-``download_file`` uses urllib. networkx is imported only by the two
-functions that return a networkx graph.
+missing. Edge files are parsed by the C scanner of ``native/``, as the
+JAX package parses them with its own (gzip files decompressed first), and
+csv files with the standard library; ``download_file`` uses urllib.
+networkx is imported only by the two functions that return a networkx
+graph.
 """
 
 import csv
@@ -23,6 +24,8 @@ from pathlib import Path
 
 import numpy as np
 import scipy.sparse as sp
+
+from . import native as fg
 
 logger = logging.getLogger(__name__)
 
@@ -89,29 +92,22 @@ def extract_file(filepath, extract_dir=None):
 def _parse_edge_text(path, comment="#", one_based=False, skip_header=False):
     """Whitespace edge-list parser -> (E, 2) int64 array.
 
-    Lines that are blank or start with ``comment`` or '%' are skipped
-    (and the first remaining one with ``skip_header``, a Matrix Market size
-    line); the first two fields of each line are the edge. A '.gz' path is
-    read through gzip.
+    Comment lines ('#' or '%', and ``comment``) and lines without two
+    integers are skipped, the first two fields of each line are the edge,
+    and ``skip_header`` drops the first data row (a Matrix Market size
+    line). A '.gz' path is read through gzip. The bytes go to the C scanner
+    (native.parse_edges_native), which knows only '#' and '%'; any other
+    ``comment`` takes its plain version.
     """
     path = Path(path)
     opener = gzip.open if path.suffix == ".gz" else open
     with opener(path, "rb") as f:
-        text = f.read().decode("utf-8", errors="replace")
-    rows = []
-    for line in text.splitlines():
-        s = line.strip()
-        if not s or s.startswith(comment) or s.startswith("%"):
-            continue
-        rows.append(s.split(None, 2)[:2])
-    if skip_header and rows:
-        rows = rows[1:]
-    if not rows:
-        return np.empty((0, 2), np.int64)
-    edges = np.array(rows, dtype=np.int64)
-    if one_based:
-        edges = edges - 1
-    return edges
+        raw = f.read()
+    if comment == "#":
+        return fg.parse_edges_native(raw, one_based=one_based,
+                                     skip_header=skip_header)
+    return fg.parse_edges_plain(raw, one_based=one_based,
+                                skip_header=skip_header, comment=comment)
 
 
 def symmetrize_edges(edges):

@@ -29,6 +29,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import native as fg
 from ..convert import state_from_jax
 from ..ops import knn_binfold as bf
 from ..ops import knn_pallas as kp
@@ -67,6 +68,27 @@ def resolve_device(device):
             "is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def csr_upper_edges(adjacency, native=True):
+    """Upper-triangle (i<j) COO edges of a sparse adjacency, (E, 2) int32 in
+    row-major order; explicit zeros are excluded, as ``nonzero()`` would.
+
+    The threaded C scan of the CSR structure (native.csr_lt_edges_native)
+    runs under the JAX package's guards: no explicit zero, n < 2^31, int32
+    or int64 indices. Outside them, or with ``native=False``, the numpy
+    line (csr_lt_edges_plain) does, with the same result.
+    """
+    if adjacency.format != "csr":
+        adjacency = adjacency.tocsr()
+    n = adjacency.shape[0]
+    nz = adjacency.data != 0
+    keep = None if nz.all() else nz
+    if native and keep is None and n < 2**31:
+        edges = fg.csr_lt_edges_native(adjacency.indptr, adjacency.indices, n)
+        if edges is not None:
+            return edges
+    return fg.csr_lt_edges_plain(adjacency.indptr, adjacency.indices, n, keep)
 
 
 class GraphEmbedderTorch:
@@ -287,17 +309,9 @@ class GraphEmbedderTorch:
         return adjacency
 
     def _extract_edges_from_adjacency(self, adjacency):
-        """Upper-triangle (i<j) COO edges from the CSR structure, int32.
-
-        Explicit zeros are excluded, as ``adjacency.nonzero()`` would.
-        """
-        if adjacency.format != "csr":
-            adjacency = adjacency.tocsr()
-        n = adjacency.shape[0]
-        rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(adjacency.indptr))
-        cols = adjacency.indices
-        mask = (rows < cols) & (adjacency.data != 0)
-        edges = np.column_stack([rows[mask], cols[mask]]).astype(np.int32)
+        """Upper-triangle (i<j) COO edges from the CSR structure, int32
+        (csr_upper_edges)."""
+        edges = csr_upper_edges(adjacency)
         if self.verbose and len(edges) == 0:
             self.logger.warning("No edges found in adjacency matrix")
         return edges

@@ -2,7 +2,8 @@
 
 Counterpart of ``graphem_rapids_tpu/ops/forces.py``, with both ref orders.
 
-Host builders (numpy; their arrays are equal to the JAX builders' with
+Host builders (numpy, with the threaded C helpers of ``native/`` where the
+JAX package runs its own; their arrays are equal to the JAX builders' with
 ``to_device=False``): a dense self-padded neighbor table turns the spring
 pass into a gather + row-sum, degree-binned tables over an internal
 degree-sorted renumbering cut its padding on skewed graphs, and the surplus
@@ -10,6 +11,8 @@ pairs of hub vertices go to a block-fold overflow plan. The same tables
 double as the kNN reference factory: slot (v, s) of the gathered neighbor
 positions yields edge midpoint (pos[v] + pos[table[v, s]]) / 2 directly.
 Every sort below is stable, so the tables are identical to the JAX ones.
+``native=False`` runs the helpers' plain numpy versions instead; both give
+the same arrays, dtypes included.
 
 Step ops (torch): ``index_add_`` takes the place of JAX's ``segment_sum``
 and ``.at[].add``. On CUDA its summation order is not deterministic, so
@@ -19,6 +22,7 @@ results agree with the JAX package to a tolerance, not bitwise.
 import numpy as np
 import torch
 
+from .. import native as fg
 from .intersect import segments_intersect_2d
 
 EPS = 1e-6
@@ -75,7 +79,7 @@ def _ref_prefix(lt_deg, rows):
 
 
 def build_neighbor_table(edges_np, n, cap=None, ref_order="row",
-                         ref_budget=None):
+                         ref_budget=None, native=True):
     """Dense (n, D) self-padded neighbor table + overflow.
 
     Returns a dict of numpy arrays:
@@ -93,7 +97,8 @@ def build_neighbor_table(edges_np, n, cap=None, ref_order="row",
 
     ``ref_order`` enumerates the table's ref slots: 'row' puts slot (v, s)
     at v*ref_cap + s, 'slot' at s*n + v (the order the slotwise step ops
-    below emit their refs in).
+    below emit their refs in). ``native``: the C helpers' sorts and rank
+    scatters (False: their plain versions).
     """
     if ref_order not in ("row", "slot"):
         raise ValueError(f"unknown ref_order: {ref_order!r}")
@@ -125,14 +130,12 @@ def build_neighbor_table(edges_np, n, cap=None, ref_order="row",
     # of the table columns); then the reverse neighbors.
     deg_fwd = np.bincount(e0, minlength=n)
     deg_rev = np.bincount(e1, minlength=n)
-    s = np.argsort(e0, kind="stable").astype(np.int32)
+    s = fg.radix_argsort(e0, native)
     fwd_start = np.concatenate([[0], np.cumsum(deg_fwd)[:-1]]).astype(np.int32)
-    col_fwd = np.empty(E, np.int32)
-    col_fwd[s] = np.arange(E, dtype=np.int32) - fwd_start[e0[s]]
-    r = np.argsort(e1, kind="stable")
+    col_fwd = fg.scatter_ranks(s, e0, fwd_start, native)
+    r = fg.radix_argsort(e1, native)
     rev_start = np.concatenate([[0], np.cumsum(deg_rev)[:-1]]).astype(np.int32)
-    col_rev = np.empty(E, np.int32)
-    col_rev[r] = np.arange(E, dtype=np.int32) - rev_start[e1[r]]
+    col_rev = fg.scatter_ranks(r, e1, rev_start, native)
     col_rev += deg_fwd[e1].astype(np.int32)
 
     in_t_fwd = col_fwd < cap
@@ -143,7 +146,7 @@ def build_neighbor_table(edges_np, n, cap=None, ref_order="row",
     # overflow pairs vertex-sorted, i<j entries first within a vertex
     ov_src = np.concatenate([e0[~in_t_fwd], e1[~in_t_rev]])
     ov_dst = np.concatenate([e1[~in_t_fwd], e0[~in_t_rev]])
-    o = np.argsort(ov_src, kind="stable")
+    o = fg.radix_argsort(ov_src, native)
     overflow = np.column_stack([ov_src[o], ov_dst[o]])
     overflow_plan = build_overflow_plan(overflow)
 
@@ -234,7 +237,8 @@ def plan_degree_buckets(deg_clipped, max_buckets=8, overhead_rows=4096):
 
 
 def build_neighbor_table_binned(edges_user, n, overhead_rows=4096,
-                                ref_order="row", ref_budget=None):
+                                ref_order="row", ref_budget=None,
+                                native=True):
     """Degree-binned neighbor tables over an internal vertex renumbering.
 
     Vertices are stably sorted by table-cap-clipped degree and split into
@@ -244,9 +248,10 @@ def build_neighbor_table_binned(edges_user, n, overhead_rows=4096,
 
     Returns None when the plan has one bucket, else a dict of numpy
     arrays (internal ids unless noted):
-      'perm' (n,) internal -> user id; 'inv_perm' (n,) int32 user -> internal
-      'edges_int' (E, 2) int32 i<j lexsorted; 'edge_map' (E,) int32 user edge
-      -> internal edge; 'edge_user' (E,) internal edge -> user edge
+      'perm' (n,) int32 internal -> user id; 'inv_perm' (n,) int32 user ->
+      internal; 'edges_int' (E, 2) int32 i<j lexsorted; 'edge_map' (E,)
+      int32 user edge -> internal edge; 'edge_user' (E,) int32 internal
+      edge -> user edge
       'buckets': [{'start', 'count', 'cap', 'ref_cap', 'ref_offset',
       'table' (count, cap) int32}], and 'overflow', 'overflow_plan',
       'overflow_lt', 'edge_ref', 'ref_edge', 'ref_valid', 'n', 'ref_order'
@@ -257,6 +262,10 @@ def build_neighbor_table_binned(edges_user, n, overhead_rows=4096,
     ref_offset_g + p*ref_cap_g + s (p = v - start_g) and stores 'table'
     (count, cap); 'slot' enumerates ref_offset_g + s*count_g + p and
     stores 'table_t' (cap, count).
+
+    ``native``: the C helpers' sorts, relabel, pair permute and rank
+    scatter (False: their plain versions). 'perm' and 'edge_user' are int32
+    either way, as the JAX package's are with its C helpers built.
     """
     if ref_order not in ("row", "slot"):
         raise ValueError(f"unknown ref_order: {ref_order!r}")
@@ -278,19 +287,18 @@ def build_neighbor_table_binned(edges_user, n, overhead_rows=4096,
     if len(spec) == 1:
         return None
 
-    perm = np.argsort(clipped, kind="stable")
+    perm = fg.radix_argsort(clipped, native)
     inv = np.empty(n, np.int32)
     inv[perm] = np.arange(n, dtype=np.int32)
-    a = inv[edges_user]
-    e_lo = np.minimum(a[:, 0], a[:, 1])
-    e_hi = np.maximum(a[:, 0], a[:, 1])
-    # keys are unique, so any sort gives the JAX package's edge order
-    order = np.argsort(e_lo.astype(np.int64) * n + e_hi)
-    e0 = e_lo[order]
-    e1 = e_hi[order]
-    edges_int = np.column_stack([e0, e1])
-    edge_map = np.empty(E, np.int32)
-    edge_map[order] = np.arange(E, dtype=np.int32)
+    e_lo, e_hi = fg.apply_perm_minmax(
+        np.asarray(edges_user, np.int32), inv, native)
+    # one argsort of unique pack keys lo << bits(n) | hi, the JAX package's
+    order = fg.radix_argsort(
+        (e_lo.astype(np.uint64) << int(n).bit_length())
+        | e_hi.astype(np.uint64), native)
+    edges_int, edge_map = fg.permute_pairs(e_lo, e_hi, order, native)
+    e0 = edges_int[:, 0].copy()
+    e1 = edges_int[:, 1].copy()
 
     counts = np.array([c for c, _ in spec], np.int64)
     caps = np.array([cap for _, cap in spec], np.int64)
@@ -302,10 +310,9 @@ def build_neighbor_table_binned(edges_user, n, overhead_rows=4096,
     deg_rev = np.bincount(e1, minlength=n)
     fwd_start = np.concatenate([[0], np.cumsum(deg_fwd)[:-1]]).astype(np.int32)
     col_fwd = np.arange(E, dtype=np.int32) - fwd_start[e0]
-    r = np.argsort(e1, kind="stable")
+    r = fg.radix_argsort(e1, native)
     rev_start = np.concatenate([[0], np.cumsum(deg_rev)[:-1]]).astype(np.int32)
-    col_rev = np.empty(E, np.int32)
-    col_rev[r] = np.arange(E, dtype=np.int32) - rev_start[e1[r]]
+    col_rev = fg.scatter_ranks(r, e1, rev_start, native)
     col_rev += deg_fwd[e1].astype(np.int32)
 
     slot_off64 = np.concatenate([[0], np.cumsum(vcap, dtype=np.int64)])
@@ -323,7 +330,7 @@ def build_neighbor_table_binned(edges_user, n, overhead_rows=4096,
 
     ov_src = np.concatenate([e0[~in_t_fwd], e1[~in_t_rev]])
     ov_dst = np.concatenate([e1[~in_t_fwd], e0[~in_t_rev]])
-    o = np.argsort(ov_src, kind="stable")
+    o = fg.radix_argsort(ov_src, native)
     overflow = np.column_stack([ov_src[o], ov_dst[o]]).astype(np.int32)
     overflow_plan = build_overflow_plan(overflow)
 
@@ -664,14 +671,39 @@ def spring_refs_binned_slotwise(positions, tables_t, buckets, k_attr, L_min,
     return forces, refs
 
 
-def spring_forces(positions, edges, k_attr, L_min):
+def build_scatter_plan(edges_np, n, device=None):
+    """Sorted scatter plan for spring_forces: 'perm' (2E,) and 'sorted_ids'
+    (2E,) int64 tensors on ``device`` (None: the CUDA card) such that
+    ``index_add_(0, sorted_ids, values[perm])`` accumulates the stacked
+    edge forces [f; -f] onto the vertices in ascending vertex order, and
+    the int 'n'. The JAX package's plan, with a stable sort."""
+    from ..models.embedder import resolve_device
+
+    dev = resolve_device(device)
+    idx = np.concatenate([edges_np[:, 0], edges_np[:, 1]]).astype(np.int64)
+    perm = np.argsort(idx, kind="stable")
+    return {
+        "perm": torch.as_tensor(perm, device=dev),
+        "sorted_ids": torch.as_tensor(idx[perm], device=dev),
+        "n": int(n),
+    }
+
+
+def spring_forces(positions, edges, k_attr, L_min, scatter_plan=None):
     """Hookean spring attraction along edges, scatter form.
 
       F_edge = -k_attr * (||p2-p1|| - L_min) * unit(p2-p1)
       forces[e0] += F_edge ; forces[e1] -= F_edge
+
+    ``scatter_plan`` (build_scatter_plan): accumulate in the plan's sorted
+    vertex order.
     """
     f = _spring(positions[edges[:, 1]] - positions[edges[:, 0]], k_attr, L_min)
     values = torch.cat([f, -f], dim=0)
+    if scatter_plan is not None:
+        out = positions.new_zeros((scatter_plan["n"], positions.shape[1]))
+        return out.index_add_(0, scatter_plan["sorted_ids"],
+                              values[scatter_plan["perm"]])
     ids = torch.cat([edges[:, 0], edges[:, 1]], dim=0)
     return torch.zeros_like(positions).index_add_(0, ids, values)
 

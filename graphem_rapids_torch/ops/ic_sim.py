@@ -26,7 +26,6 @@ later work.
 import numpy as np
 import torch
 
-from ..models.embedder import resolve_device
 from .forces import _optimal_table_cap
 
 # Beyond this many table slots the gather formulation's memory stops paying
@@ -154,6 +153,8 @@ def independent_cascade(edges, n, seeds, p=0.1, num_sims=64, max_iters=200,
 
     Returns (counts (num_sims,) np.ndarray of activated counts, max_iters).
     """
+    from ..models.embedder import resolve_device
+
     dev = resolve_device(device)
     edges = np.asarray(edges, np.int64).reshape(-1, 2)
     seed_mask = torch.zeros(n, dtype=torch.bool, device=dev)

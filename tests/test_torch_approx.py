@@ -19,9 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from graphem_rapids_torch.ops import knn as tknn
-
-# the JAX package's ops/__init__ binds the name knn to the function
+# both packages' ops/__init__ bind the name knn to the function
+tknn = importlib.import_module("graphem_rapids_torch.ops.knn")
 jknn = importlib.import_module("graphem_rapids_tpu.ops.knn")
 
 BF16_RTOL = 2.0 ** -5

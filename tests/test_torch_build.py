@@ -2,8 +2,9 @@
 
 ``_build.library_path`` hashes a kernel's source, every header of
 ``csrc/`` and the nvcc flags, so that an edited source or header gives a new
-library (built anew) and an unchanged tree loads the one it built before.
-Nothing here runs nvcc.
+library (built anew) and an unchanged tree loads the one it built before;
+a host C source hashes its compiler in place of the headers. Nothing here
+runs a compiler.
 """
 
 import pytest
@@ -56,3 +57,56 @@ def test_repo_kernels_hash_the_shared_fold_plan():
     for name in ("binfold", "ring_binfold"):
         assert '#include "fold_plan.cuh"' in _build.source_path(
             name).read_text()
+
+
+@pytest.fixture
+def host_csrc(csrc):
+    """csrc/ with a host C source beside the kernels."""
+    (csrc / "h.c").write_text("// host helpers\n")
+    return csrc
+
+
+@pytest.mark.fast
+def test_host_source_hashes_its_compiler_not_the_headers(host_csrc,
+                                                         monkeypatch):
+    assert _build.source_path("h").suffix == ".c"
+    assert _build.source_path("a").suffix == ".cu"
+    before = _build.library_path("h")
+    assert before.name.startswith("libh-")
+    (host_csrc / "plan.cuh").write_text("// shared plan, edited\n")
+    assert _build.library_path("h") == before
+    monkeypatch.setenv("CC", "some-other-cc")
+    assert _build.host_compiler() == ["some-other-cc"]
+    assert _build.library_path("h") != before
+    (host_csrc / "h.c").write_text("// host helpers, edited\n")
+    assert _build.library_path("h") != before
+
+
+@pytest.mark.fast
+def test_build_without_names_compiles_only_kernels(host_csrc, tmp_path,
+                                                   monkeypatch):
+    """build() runs nvcc over csrc/*.cu only; the host library is built by
+    name, with the host compiler."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setenv("CC", "cc")
+    commands = {}
+
+    def start(name):
+        commands[name] = _build._command(name, tmp_path / "out.so")
+        return None, None, None
+
+    monkeypatch.setattr(_build, "_start", start)
+    monkeypatch.setattr(_build, "_finish", lambda *args: "")
+    assert set(_build.build()) == {"a", "b"}
+    assert all(cmd[0] == "nvcc" for cmd in commands.values())
+    commands.clear()
+    assert set(_build.build(["h"])) == {"h"}
+    assert commands["h"][0] == "cc"
+    assert "-pthread" in commands["h"]
+
+
+@pytest.mark.fast
+def test_repo_host_library_is_fastgraph():
+    assert _build.source_path("fastgraph").name == "fastgraph.c"
+    assert "fastgraph" not in {p.stem for p in _build.CSRC_DIR.glob("*.cu")}

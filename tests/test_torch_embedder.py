@@ -14,9 +14,9 @@ import scipy.sparse as sp
 import torch
 
 import graphem_rapids_tpu as gr
-from graphem_rapids_tpu.models import oracle
 from graphem_rapids_tpu.ops.laplacian import spectral_init as j_spectral_init
 from graphem_rapids_torch import GraphEmbedderTorch, state_from_jax
+from graphem_rapids_torch.models import oracle
 from graphem_rapids_torch.ops.laplacian import spectral_init as t_spectral_init
 
 PARAMS = dict(L_min=10.0, k_attr=0.5, k_inter=0.1, n_neighbors=5)

@@ -14,12 +14,16 @@ has no JAX, so the JAX package is imported inside the tests that use it:
     python -m pytest --noconftest -m cuda tests/test_torch_knn_pallas.py
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from graphem_rapids_torch.ops import knn as tknn
 from graphem_rapids_torch.ops import knn_pallas as tkp
+
+# the ops package binds the name knn to the function
+tknn = importlib.import_module("graphem_rapids_torch.ops.knn")
 
 
 def _jax_knn_pallas():

@@ -2,9 +2,10 @@
 
 Each op gets the same inputs, made with numpy from a seed, in both
 packages. Forces are held at rtol=1e-5, atol=1e-5 against the JAX op and
-against models/oracle.py in float64: the tolerance covers the summation
-order, which differs between index_add_, segment_sum and np.add.at.
-Midpoint refs and the intersection test are held bit for bit.
+against the port's models/oracle.py in float64: the tolerance covers the
+summation order, which differs between index_add_, segment_sum and
+np.add.at. Midpoint refs and the intersection test are held bit for bit,
+and the port's oracle is bit-equal to the JAX package's.
 """
 
 import importlib
@@ -14,15 +15,18 @@ import numpy as np
 import pytest
 import torch
 
-from graphem_rapids_tpu.models import oracle
+import graphem_rapids_tpu.ops as jops
+import graphem_rapids_torch.ops as tops
+from graphem_rapids_tpu.models import oracle as joracle
 from graphem_rapids_tpu.ops import forces as jf
 from graphem_rapids_tpu.ops.intersect import segments_intersect_2d as j_sid
+from graphem_rapids_torch.models import oracle
 from graphem_rapids_torch.ops import forces as tf
-from graphem_rapids_torch.ops import knn as tknn
 from graphem_rapids_torch.ops import sampling
 from graphem_rapids_torch.ops.intersect import segments_intersect_2d as t_sid
 
-# graphem_rapids_tpu.ops re-exports the knn() function under the module name
+# both packages' ops re-export the knn() function under the module name
+tknn = importlib.import_module("graphem_rapids_torch.ops.knn")
 jknn = importlib.import_module("graphem_rapids_tpu.ops.knn")
 
 K_ATTR, L_MIN, K_INTER = 0.5, 10.0, 0.1
@@ -68,6 +72,67 @@ def test_spring_scatter_form():
     orc = oracle.spring_forces_np(pos.astype(np.float64), e, K_ATTR, L_MIN)
     np.testing.assert_allclose(got, ref, **TOL)
     np.testing.assert_allclose(got, orc, **TOL)
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("use_plan", [False, True])
+def test_spring_scatter_plan(use_plan):
+    """spring_forces with and without build_scatter_plan against the JAX
+    op (rtol=1e-5, as tests/test_oracle_parity.py holds JAX's plan)."""
+    e, n, pos = _graph(seed=5)
+    plan = tf.build_scatter_plan(e, n, device="cpu") if use_plan else None
+    got = tf.spring_forces(_t(pos), _t(e), K_ATTR, L_MIN,
+                           scatter_plan=plan).numpy()
+    jplan = jf.build_scatter_plan(e, n) if use_plan else None
+    ref = np.asarray(jf.spring_forces(jnp.asarray(pos), jnp.asarray(e),
+                                      K_ATTR, L_MIN, jplan))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    if use_plan:
+        np.testing.assert_array_equal(plan["perm"].numpy(), jplan["perm"])
+        np.testing.assert_array_equal(plan["sorted_ids"].numpy(),
+                                      jplan["sorted_ids"])
+        assert plan["n"] == jplan["n"] == n
+
+
+@pytest.mark.fast
+def test_scatter_plan_default_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    e, n, _ = _graph()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf.build_scatter_plan(e, n)
+
+
+@pytest.mark.fast
+def test_ops_exports_match_jax():
+    assert tops.__all__ == jops.__all__
+    for name in tops.__all__:
+        assert callable(getattr(tops, name)), name
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_oracle_bit_equal_to_jax_oracle(seed):
+    rng = np.random.default_rng(seed)
+    n, m = 60, 200
+    e = rng.integers(0, n, (m, 2))
+    e = np.unique(np.sort(e[e[:, 0] != e[:, 1]], axis=1), axis=0)
+    pos = rng.standard_normal((n, 3))
+    sampled = rng.choice(len(e), 16, replace=False)
+    kw = dict(k_attr=K_ATTR, L_min=L_MIN, k_inter=K_INTER, n_neighbors=5)
+    np.testing.assert_array_equal(
+        oracle.update_step_np(pos, e, sampled, **kw),
+        joracle.update_step_np(pos, e, sampled, **kw))
+    np.testing.assert_array_equal(
+        oracle.spring_forces_np(pos, e, K_ATTR, L_MIN),
+        joracle.spring_forces_np(pos, e, K_ATTR, L_MIN))
+    mid = (pos[e[:, 0]] + pos[e[:, 1]]) / 2
+    knn_idx = oracle.knn_np(mid[sampled], mid, 6)
+    np.testing.assert_array_equal(knn_idx, joracle.knn_np(mid[sampled], mid, 6))
+    np.testing.assert_array_equal(
+        oracle.intersection_forces_np(pos, e, knn_idx[:, 1:], sampled,
+                                      K_INTER),
+        joracle.intersection_forces_np(pos, e, knn_idx[:, 1:], sampled,
+                                       K_INTER))
 
 
 @pytest.mark.fast
