@@ -73,9 +73,15 @@ Phases:
    strategy, K2), run_layout(50) timed, graphem_seed_selection (20 more
    iterations), then estimated_influence of the seeds and of 10 random
    vertices at p=0.1 over 64 runs, and the exact gates p=0 (exactly the
-   seeds) and p=1 (exactly the seeds' connected components);
+   seeds) and p=1 (exactly the seeds' connected components); the first
+   estimate's ic_seconds split into the edge extraction, the cascade
+   plan's host build, its upload and the cascade; the four cascades must
+   be four ic_cascade launches;
 8. greedy: greedy_seed_selection on a small hub graph, the same seeds on
-   the card and on the CPU;
+   the card and on the CPU; then on a 2,000-vertex graph (four random
+   Hamiltonian cycles, k=5, p=0.1, 32 runs) through the cascade kernel and
+   through its plain version on the card: the same seeds and
+   evaluations, both timed;
 9. card against CPU: a small graph, 5 injected-sample steps with
    knn_strategy='binfold', 'pallas' and 'approx', and 'binfold' with
    ref_order='slot', on the card and on the CPU, allclose;
@@ -201,12 +207,26 @@ Phases:
     equal in value and dtype between the two, the C runs must have called
     each helper of their table kind and the plain runs none. The "host"
     line gives the host CPU model, os.cpu_count(), the CPUs the process
-    may use and the helpers' thread count.
+    may use and the helpers' thread count;
+22. IC cascade kernel against its plain version, run after phase 21:
+    csrc/ic_cascade.cu (one cooperative launch per cascade) and
+    ic_cascade_reference on the same packed seed words and Philox key, at
+    the 100K plan (cap 8, no overflow) and the 1M plan (cap 13, 35,188
+    overflow in-edges) with 10 random seeds in 64 columns at p=0.1, and at
+    the hub graph's first greedy chunk (64 candidates x 32 runs, B=2048,
+    W=64) at p=0.2; each also at p=0 and p=1. Active words, counts and
+    steps must be bit-equal, one launch per cascade, p=0 exactly the seeds
+    and p=1 exactly the seeds' components in every column. At each
+    shape's own p: the steps, the coins drawn, the kernel's time per call
+    and back to back, the plain version's, the bound (each input read and
+    each output written once, against the coins' Philox instructions) and
+    the per-step traffic model of the kernel's source note
+    (step_bytes_ms).
 
-Each main-path, quick-start, sharded and toolkit phase zeroes the kernels'
-launch counts just before its timed run and reads them just after. A
-handler on the spectral init's logger records every tier-down warning, and
-a phase whose engines logged one fails. The line before the last is the
+Each main-path, quick-start, greedy, sharded and toolkit phase zeroes the
+kernels' launch counts just before its timed run and reads them just
+after. A handler on the spectral init's logger records every tier-down
+warning, and a phase whose engines logged one fails. The line before the last is the
 kernel summary {"kernels": [...]}; the last line is {"ok": true,
 "device": {...}}. Any failure raises and exits nonzero.
 """
@@ -233,8 +253,8 @@ SPECTRAL_BLOCK_ATOL = 1e-4
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # the host's CUDA calls that put work on a stream, counted by --profile
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-               "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemsetAsync",
-               "cudaMemcpyAsync")
+               "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
+               "cudaGraphLaunch", "cudaMemsetAsync", "cudaMemcpyAsync")
 
 
 class SpectralLog(logging.Handler):
@@ -628,8 +648,11 @@ def phase_kernel_k2(kp, knn_exact, fp32_instr_per_s, build_report):
 
 def phase_quickstart(grt, bf, kp, label, adj, init, warmup, profile):
     """Phase 7: create_graphem(backend='cuvs') -> run_layout ->
-    graphem_seed_selection -> estimated_influence, on the card."""
+    graphem_seed_selection -> estimated_influence, on the card. Returns
+    the K2 launches and the IC cascade kernel's."""
     from scipy.sparse.csgraph import connected_components
+
+    from graphem_rapids_torch.ops import ic_cascade as icc
 
     t0 = time.perf_counter()
     emb = grt.create_graphem(adj, n_components=3, backend="cuvs", seed=0,
@@ -668,21 +691,29 @@ def phase_quickstart(grt, bf, kp, label, adj, init, warmup, profile):
         raise AssertionError(f"{label}: seeds {seeds}")
 
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    spread = grt.estimated_influence(adj, seeds, p=0.1, num_sims=64)
-    ic_s = time.perf_counter() - t0
+    icc.ic_cascade.launches = 0
+    with ic_split() as split:
+        t0 = time.perf_counter()
+        spread = grt.estimated_influence(adj, seeds, p=0.1, num_sims=64)
+        ic_s = time.perf_counter() - t0
+    split["other_s"] = ic_s - sum(split.values())
     rand = np.random.default_rng(0).choice(emb.n, 10, replace=False).tolist()
     spread_rand = grt.estimated_influence(adj, rand, p=0.1, num_sims=64)
     p0 = grt.estimated_influence(adj, seeds, p=0.0, num_sims=8)
     p1 = grt.estimated_influence(adj, seeds, p=1.0, num_sims=4)
+    ic_launches = icc.ic_cascade.launches
     _, comp = connected_components(adj, directed=False)
     exact_p1 = int(np.isin(comp, comp[seeds]).sum())
     emit("quickstart_influence", graph=label, p=0.1, num_sims=64,
-         ic_seconds=ic_s, spread_graphem=spread, spread_random=spread_rand,
-         p0_spread=p0, p1_spread=p1, p1_exact=exact_p1)
+         ic_seconds=ic_s, split=split, spread_graphem=spread,
+         spread_random=spread_rand, p0_spread=p0, p1_spread=p1,
+         p1_exact=exact_p1, cascades=4, ic_cascade_launches=ic_launches)
     if p0 != 10.0 or p1 != exact_p1:
         raise AssertionError(f"{label}: IC gates p=0 -> {p0} (want 10), "
                              f"p=1 -> {p1} (want {exact_p1})")
+    if ic_launches != 4:
+        raise AssertionError(f"{label}: {ic_launches} ic_cascade launches "
+                             "for 4 cascades")
     if profile:
         profile_steps(emb, label + "_pallas", dt / ITERS * 1e3)
         profile_call(
@@ -690,7 +721,7 @@ def phase_quickstart(grt, bf, kp, label, adj, init, warmup, profile):
             lambda: grt.estimated_influence(adj, rand, p=0.1, num_sims=64),
             lambda: grt.estimated_influence(adj, seeds, p=0.1, num_sims=64),
             ic_s * 1e3, 1)
-    return launches
+    return launches, ic_launches
 
 
 def hub_graph(seed=3):
@@ -713,17 +744,51 @@ def hub_graph(seed=3):
 
 
 def phase_greedy(grt):
-    """Phase 8: greedy seeds on the card equal those on the CPU."""
+    """Phase 8: greedy seeds on the card equal those on the CPU (hub
+    graph); on a 2,000-vertex graph greedy through the cascade kernel
+    gives exactly the seeds of greedy through its plain version on the
+    card (the same coins). Returns the kernel's launches in the greedy
+    runs through it."""
+    from graphem_rapids_torch.ops import ic_cascade as icc
+
     adj = hub_graph()
     kw = dict(p=0.2, iterations_count=50, num_sims=32, seed=0)
+    icc.ic_cascade.launches = 0
     t0 = time.perf_counter()
     card, evals = grt.greedy_seed_selection(adj, 3, **kw)
     dt = time.perf_counter() - t0
+    launches = icc.ic_cascade.launches
     cpu, _ = grt.greedy_seed_selection(adj, 3, device="cpu", **kw)
-    emit("greedy", n=adj.shape[0], seeds_card=card, seeds_cpu=cpu,
-         evaluations=evals, seconds_card=dt)
+    emit("greedy", graph="hub", n=adj.shape[0], seeds_card=card,
+         seeds_cpu=cpu, evaluations=evals, seconds_card=dt,
+         ic_cascade_launches=launches)
     if card != cpu:
         raise AssertionError(f"greedy seeds differ: card {card}, cpu {cpu}")
+
+    adj = regular_union_graph(2000)
+    kw = dict(p=0.1, iterations_count=200, num_sims=32, seed=0)
+    icc.ic_cascade.launches = 0
+    t0 = time.perf_counter()
+    kern, evals = grt.greedy_seed_selection(adj, 5, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    kern_launches = icc.ic_cascade.launches
+    with plain_cascade():
+        t0 = time.perf_counter()
+        plain, plain_evals = grt.greedy_seed_selection(adj, 5, **kw)
+        torch.cuda.synchronize()
+        dt_plain = time.perf_counter() - t0
+    emit("greedy", graph="regular_union_2000", n=adj.shape[0],
+         seeds_kernel=kern, seeds_plain=plain, evaluations=evals,
+         seconds_kernel=dt, seconds_plain=dt_plain,
+         ic_cascade_launches=kern_launches,
+         plain_launches=icc.ic_cascade.launches - kern_launches)
+    if (kern, evals) != (plain, plain_evals) or \
+            icc.ic_cascade.launches != kern_launches:
+        raise AssertionError(f"greedy through the kernel {kern} ({evals}) "
+                             f"and its plain version {plain} "
+                             f"({plain_evals})")
+    return launches + kern_launches
 
 
 def profile_steps(emb, label, untraced_ms_per_iter, iters=10):
@@ -928,6 +993,173 @@ def phase_host_prep(graphs):
         if kind != expect_table:
             raise AssertionError(f"{label}: table {kind}, expected "
                                  f"{expect_table}")
+
+
+@contextlib.contextmanager
+def ic_split():
+    """Seconds of an IC estimate's stages inside: the edge extraction, the
+    cascade plan's build on the host, its upload and the cascade (each
+    stage ends in a synchronize)."""
+    from graphem_rapids_torch import influence as inf
+    from graphem_rapids_torch.ops import ic_sim as tic
+
+    secs = dict(extract_s=0.0, plan_s=0.0, upload_s=0.0, cascade_s=0.0)
+    stages = [(inf, "_as_edges_and_n", "extract_s"),
+              (tic, "cascade_plan_arrays", "plan_s"),
+              (tic, "upload_plan", "upload_s"),
+              (tic, "_ic_run_table", "cascade_s")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in stages]
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                return out
+            finally:
+                secs[key] += time.perf_counter() - t0
+        return call
+
+    for (mod, name, key), (_, _, fn) in zip(stages, saved):
+        setattr(mod, name, timed(fn, key))
+    try:
+        yield secs
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def plain_cascade():
+    """Inside, the gather IC runs ic_cascade's plain version on the card
+    (the comparisons of phases 8 and 22, never the main path)."""
+    from graphem_rapids_torch.ops import ic_cascade as icc
+    from graphem_rapids_torch.ops import ic_sim as tic
+
+    def plain(*args):
+        icc._check(*args)
+        return icc.ic_cascade_reference(*args)
+
+    saved = tic.ic_cascade
+    tic.ic_cascade = plain
+    try:
+        yield
+    finally:
+        tic.ic_cascade = saved
+
+
+def ic_cases(adj100k, adj1m, device="cuda"):
+    """Phase 22's shapes: (label, adj, (n, B) bool seed mask on the card,
+    p). The two main-path graphs with 10 random seeds in all 64 columns,
+    and the hub graph's first greedy chunk: candidates 0..63, 32 runs
+    each (column 32 c + r holds candidate c)."""
+    out = []
+    for label, adj in (("random_8_regular_100k", adj100k),
+                       ("ring_chords_1m", adj1m)):
+        n = adj.shape[0]
+        seeds = np.random.default_rng(0).choice(n, 10, replace=False)
+        mask = torch.zeros((n, 64), dtype=torch.bool, device=device)
+        mask[torch.as_tensor(seeds, device=device)] = True
+        out.append((label, adj, mask, 0.1))
+    hub = hub_graph()
+    mask = torch.zeros((hub.shape[0], 64), dtype=torch.bool, device=device)
+    mask[torch.arange(64), torch.arange(64)] = True
+    out.append(("hub_greedy_chunk", hub,
+                mask.repeat_interleave(32, dim=1), 0.2))
+    return out
+
+
+def phase_ic_kernel(fp32_instr_per_s, adj100k, adj1m, device="cuda"):
+    """Phase 22: the IC cascade kernel against its plain version on the
+    card, bit for bit (active words, counts, steps), at each of ic_cases'
+    shapes for its p, p=0 and p=1; one launch per cascade; p=0 leaves
+    exactly the seeds and p=1 exactly their components. At each shape's p
+    the kernel's time per call and back to back, the plain version's, and
+    the bounds. Returns the 1M shape's numbers for the kernel summary."""
+    from scipy.sparse.csgraph import connected_components
+
+    from graphem_rapids_torch.influence import _as_edges_and_n
+    from graphem_rapids_torch.ops import ic_cascade as icc
+    from graphem_rapids_torch.ops import ic_sim as tic
+
+    key = torch.tensor([0x2545F491, 0x6C078965], dtype=torch.int64,
+                       device=device)
+    out = {"max_abs_err": 0}
+    for label, adj, mask, p in ic_cases(adj100k, adj1m, device):
+        edges, n = _as_edges_and_n(adj)
+        plan = tic.build_cascade_plan(edges, n, device)
+        table, ptr, src = plan["table"], plan["ov_ptr"], plan["ov_src"]
+        cap, O, B = table.shape[1], src.shape[0], mask.shape[1]
+        W = -(-B // 32)
+        words = icc.pack_columns(mask)
+        _, comp = connected_components(adj, directed=False)
+        comp = torch.as_tensor(comp, device=device)
+        # p=1 activates every vertex whose component holds a seed
+        hit = torch.zeros((B, int(comp.max()) + 1), dtype=torch.bool,
+                          device=device)
+        cols, rows = torch.nonzero(mask.t(), as_tuple=True)
+        hit[cols, comp[rows]] = True
+        sizes = torch.bincount(comp).to(torch.int64)
+        exact = {0.0: mask.sum(dim=0),
+                 1.0: (hit.to(torch.int64) * sizes).sum(dim=1)}
+        for pp in (p, 0.0, 1.0):
+            thr = icc.coin_threshold(pp)
+            args = (table, ptr, src, words, key, thr, 200, B)
+            before = icc.ic_cascade.launches
+            got = icc.ic_cascade(*args)
+            torch.cuda.synchronize()
+            launches = icc.ic_cascade.launches - before
+            stats = {}
+            want = icc.ic_cascade_reference(*args, stats=stats)
+            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            err = int((got[1] - want[1]).abs().max())
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            steps = int(got[2])
+            row = dict(graph=label, n=n, cap=cap, W=W, B=B, O=O, p=pp,
+                       steps=steps, launches_per_cascade=launches,
+                       bit_equal=equal, coins=stats["coins"],
+                       mean_count=float(got[1].double().mean()))
+            if pp in exact:
+                row["exact"] = bool(torch.equal(got[1].to(torch.int64),
+                                                exact[pp].to(torch.int64)))
+            if pp == p:
+                ms = cuda_ms(lambda: icc.ic_cascade(*args))
+                b2b = back_to_back_ms(lambda: icc.ic_cascade(*args))
+                plain_ms = cuda_ms(lambda: icc.ic_cascade_reference(*args),
+                                   reps=3, warmup=1)
+                # each input read once and each output written once
+                io_bytes = 4 * (n * cap + n + 1 + O + 2 * n * W + B + 1) + 16
+                # per step: the table, one 32-byte sector per gathered
+                # frontier word group, the overflow list and row starts,
+                # and the active and frontier words read and written
+                step_bytes = (4 * (n * cap + O + n + 1)
+                              + 32 * (n * cap + O) * -(-W // 8)
+                              + 16 * n * W)
+                # a Philox4x32-10 draw is about 78 integer instructions
+                # and serves up to 4 coins
+                ops = stats["coins"] * 78 / 4
+                bytes_ms = io_bytes / H100_HBM_BYTES_PER_S * 1e3
+                ops_ms = ops / fp32_instr_per_s * 1e3
+                bound = max(bytes_ms, ops_ms)
+                row.update(kernel_ms=ms, back_to_back_ms=b2b,
+                           plain_ms=plain_ms, io_bytes=io_bytes,
+                           ops=ops, bound_ms=bound,
+                           bound_by="bytes" if bytes_ms >= ops_ms
+                           else "operations",
+                           step_bytes=step_bytes,
+                           step_bytes_ms=steps * step_bytes
+                           / H100_HBM_BYTES_PER_S * 1e3,
+                           share_of_bound_back_to_back=bound / b2b)
+                if adj is adj1m:
+                    out.update(ms=ms, back_to_back_ms=b2b, plain_ms=plain_ms,
+                               bound_ms=bound, bound_by=row["bound_by"])
+            emit("ic_kernel", **row)
+            if not equal or launches != 1 or not row.get("exact", True):
+                raise AssertionError(f"ic_kernel {label} p={pp}: {row}")
+        del plan, table, ptr, src, words
+    torch.cuda.empty_cache()
+    return out
 
 
 @contextlib.contextmanager
@@ -2168,6 +2400,7 @@ def main(argv):
     adj100k, adj1m = regular_union_graph(100_000), ring_chords_graph()
     phase_host_prep([("random_8_regular_100k", adj100k, "flat"),
                      ("ring_chords_1m", adj1m, "binned")])
+    ic = phase_ic_kernel(fp32_instr_per_s, adj100k, adj1m)
     starts = phase_spectral(log, [
         ("ring_chords_100k", ring_chords_graph(100_000, 300_000), "eigsh"),
         ("hub_chords_100k", hub_chords_graph(), "block_plan"),
@@ -2179,11 +2412,13 @@ def main(argv):
     launches += phase_main(grt, bf, "ring_chords_1m", adj1m,
                            "binned+overflow plan", "auto", warmup=5,
                            profile=profile, log=log, checked=k1["checked"])
-    k2_launches = phase_quickstart(grt, bf, kp, "random_8_regular_100k",
-                                   adj100k, "auto", warmup=5, profile=profile)
-    k2_launches += phase_quickstart(grt, bf, kp, "ring_chords_1m", adj1m,
+    k2_launches, ic_launches = phase_quickstart(
+        grt, bf, kp, "random_8_regular_100k", adj100k, "auto", warmup=5,
+        profile=profile)
+    k2_1m, ic_1m = phase_quickstart(grt, bf, kp, "ring_chords_1m", adj1m,
                                     "random", warmup=5, profile=profile)
-    phase_greedy(grt)
+    k2_launches += k2_1m
+    ic_launches += ic_1m + phase_greedy(grt)
     for strategy in ("binfold", "pallas", "approx"):
         phase_card_vs_cpu(grt, strategy)
     phase_card_vs_cpu(grt, "binfold", ref_order="slot")
@@ -2276,6 +2511,19 @@ def main(argv):
         "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "ic_cascade",
+        "route": "cuda",
+        "source": "graphem_rapids_torch/csrc/ic_cascade.cu",
+        "replaces": "graphem_rapids_tpu/ops/ic_sim.py:116",
+        "launches": ic_launches,
+        "max_abs_err": ic["max_abs_err"],
+        "ms": ic["ms"],
+        "back_to_back_ms": ic["back_to_back_ms"],
+        "plain_ms": ic["plain_ms"],
+        "bound_ms": ic["bound_ms"],
+        "bound_by": ic["bound_by"],
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

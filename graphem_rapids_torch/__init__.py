@@ -27,6 +27,7 @@ The sharded tier runs one rank per card over ``torch.distributed``
 """
 
 import logging
+import os
 
 import numpy as np
 import torch
@@ -224,3 +225,33 @@ __all__ = [
     "benchmark_correlations",
     "run_influence_benchmark",
 ]
+
+
+def _show_backend_info():
+    """Print the torch version, the CUDA cards (count and kind) and the
+    recommended strategy."""
+    info = get_backend_info()
+    status = [f"torch {info['torch_version']}"]
+    if info["cuda_available"]:
+        status.append(f"CUDA {info['cuda_version']} ✓ "
+                      f"({info['cuda_device_count']}x "
+                      f"{info['cuda_device_name']})")
+    else:
+        status.append("CUDA ✗ (cpu)")
+    print(f"GraphEm Rapids torch v{__version__} - {' | '.join(status)}")
+    print(f"Recommended strategy: {info['recommended_backend'].upper()}")
+
+
+def backend_info_main():
+    """Console-script entry (``graphem-torch-info``): print the backend
+    info and exit 0."""
+    _show_backend_info()
+
+
+# The banner is opt-in, as in the JAX package: GRAPHEM_RAPIDS_QUIET=false
+# (or 0) prints it at import; the console entry point prints it on demand.
+if os.environ.get("GRAPHEM_RAPIDS_QUIET", "true").lower() in ("false", "0"):
+    try:
+        _show_backend_info()
+    except Exception:  # a cosmetic banner never breaks the import
+        pass

@@ -18,6 +18,7 @@ import scipy.sparse as sp
 import torch
 
 from .models.embedder import resolve_device
+from .ops.ic_cascade import column_mask_words, pack_columns_np
 from .ops.ic_sim import (
     _generator,
     _ic_run,
@@ -129,15 +130,25 @@ def _marginal_chunk_table(plan, base_mask, p, generator, cand_ids, num_sims,
     """Spread of base_mask + each candidate, on the gather simulator.
 
     The C candidates x num_sims runs are the columns of one (n, C * s)
-    batch; a candidate already in the seed set gets -inf.
+    cascade (column c * s + r is run r of candidate c), whose packed seed
+    words are built directly: every column of a base vertex, and
+    candidate c's s columns in its row. One ``ic_cascade`` call, one key
+    drawn from ``generator``. A candidate already in the seed set gets
+    -inf.
     """
-    n = base_mask.shape[0]
     C = cand_ids.shape[0]
-    seed = base_mask[:, None].expand(n, C).clone()
-    seed[cand_ids, torch.arange(C, device=seed.device)] = True
-    seed = seed.repeat_interleave(num_sims, dim=1)  # (n, C*s)
-    counts = _ic_run_table(plan["table"], plan["ov_dst"], plan["ov_src"],
-                           seed, p, generator, C * num_sims, max_iters)
+    B = C * num_sims
+    dev = base_mask.device
+    full = column_mask_words(B, dev)
+    words = torch.where(base_mask[:, None], full, 0)
+    cand_bits = torch.as_tensor(pack_columns_np(
+        np.repeat(np.eye(C, dtype=bool), num_sims, axis=1)), device=dev)
+    # the candidates' column sets are disjoint, so the sum over a row that
+    # appears twice (the padded tail of a chunk) is their OR
+    cand_words = torch.zeros_like(words).index_put_(
+        (cand_ids,), cand_bits, accumulate=True)
+    counts = _ic_run_table(plan, words | cand_words, p, generator, B,
+                           max_iters)
     gains = counts.reshape(C, num_sims).to(torch.float32).mean(dim=1)
     return torch.where(base_mask[cand_ids], -torch.inf, gains)
 
@@ -147,7 +158,8 @@ def greedy_seed_selection(G, k, p=0.1, iterations_count=200, num_sims=32,
     """Greedy marginal-gain seed selection.
 
     Candidates x Monte-Carlo runs fold into one batched cascade per chunk
-    on the gather simulator; rounds after the first re-evaluate only the
+    on the gather simulator (one ``ic_cascade`` launch per chunk on a
+    card); rounds after the first re-evaluate only the
     C highest stale candidates (batched CELF, as the JAX package does).
     Graphs whose cascade table exceeds the budget take the full sweep of
     ``_greedy_scatter``.
@@ -164,7 +176,8 @@ def greedy_seed_selection(G, k, p=0.1, iterations_count=200, num_sims=32,
                                gen)
 
     cap = plan["table"].shape[1]
-    # chunk bounded by the (n, cap, C*s) bool gather working set
+    # the JAX package's chunk rule (its (n, cap, C*s) gather working set),
+    # so that both sweep the same candidate chunks
     C = int(max(1, min(64, n, (1 << 31) // max(n * cap * num_sims, 1))))
     n_pad = -(-n // C) * C
     cand_all = np.zeros(n_pad, np.int64)

@@ -1,0 +1,321 @@
+"""One Independent-Cascade cascade on bit-packed state: a hand-written CUDA
+kernel and its plain version.
+
+Counterpart of the ``lax.while_loop`` of
+``graphem_rapids_tpu/ops/ic_sim.py`` ``_ic_run_table`` under ``jit``: the
+whole cascade of the gather formulation (every step, the frontier test and
+the coins) runs as one launch of ``csrc/ic_cascade.cu`` on the card, so
+no (n, cap, B) array reaches memory and the host does not wait between
+steps.
+
+State. The B Monte-Carlo columns of a vertex are packed into W = ceil(B /
+32) int32 words, column b in bit b % 32 of word b // 32 (``pack_columns``,
+``unpack_columns``); bits of the last word at b >= B are zero. The cascade
+plan is a self-padded in-neighbour table (n, cap) int32 and the above-cap
+in-edges sorted by destination: ``ov_src`` (O,) int32 with row starts
+``ov_ptr`` (n + 1,) int32.
+
+The step (the semantics of ``_ic_run_table``). At step t, ``hit(v, b)`` is
+true when for some slot j < cap, ``frontier(table[v, j], b)`` and
+``coin(t, v, j, b)``, or when an overflow in-edge o of v (ov_ptr[v] <= o <
+ov_ptr[v + 1]) has ``frontier(ov_src[o], b)`` and ``coin(t, v, cap + o,
+b)``. Then ``newly = hit & ~active``, ``active |= newly``, ``frontier =
+newly``. The frontier starts as the seed words. The cascade stops after
+the first step whose ``newly`` is empty, or after ``max_iters`` steps; a
+self pad never activates anyone (v in the frontier means v active).
+
+The coin. One fixed function, shared by the kernel and the plain version:
+
+    coin(t, v, j, b) = philox4x32_10(counter=(b >> 2, j, v, t), key)[b & 3] < thr
+
+``key`` is one 64-bit Philox key, two 32-bit words held as a (2,) int64
+device tensor drawn from the caller's generator (``draw_key``), so the
+host never reads it. ``thr = floor(p * 2^32)`` clipped to [0, 2^32]
+(``coin_threshold``): p = 0 never fires and p = 1 always fires. The
+counter (step, receiving vertex, slot, column) is distinct for every coin
+of a cascade, so a coin is the same whoever draws it and whenever: both
+versions draw only where an attempt can change the result (a frontier bit
+at the source and the column not yet active or hit at the receiver), and
+get the coins they would get by drawing them all. The coins are not
+``jax.random``'s; the two packages agree in distribution.
+
+``ic_cascade_reference`` is the plain version, a Python loop of torch ops
+(one host sync per step). ``ic_cascade`` runs it for tensors on the CPU and
+launches the kernel for CUDA tensors, or raises; ``ic_cascade.launches``
+counts the kernel's launches.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import _build
+from .knn_binfold import kernel_blocks_per_sm
+
+# Philox4x32-10 (Salmon et al., SC'11; Random123): round multipliers and
+# the key's Weyl increments.
+PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+PHILOX_ROUNDS = 10
+_MASK32 = 0xFFFFFFFF
+_TWO32 = 1 << 32
+
+# Threads per block of the kernel (csrc/ic_cascade.cu kThreads).
+THREADS = 256
+# The wrapper's int32 control buffer: the kernel's control block (two
+# 64-bit activation totals by step parity, the 64-bit barrier count, the
+# step count) in the first CTL_WORDS words, the (B,) counts after it.
+CTL_WORDS = 8
+_STEPS_WORD = 6
+# Slots of the plain version's gather per chunk: bounds its working set
+# (about 100 bytes per attempted coin) on a card at the 1M-vertex plan.
+_REF_CHUNK_WORDS = 1 << 20
+
+
+def coin_threshold(p):
+    """``floor(p * 2^32)`` clipped to [0, 2^32]: a coin fires when its
+    32-bit draw is below it."""
+    thr = int(float(p) * float(_TWO32))
+    return min(max(thr, 0), _TWO32)
+
+
+def draw_key(generator):
+    """A (2,) int64 Philox key (two 32-bit words) on the generator's
+    device, drawn from ``generator`` without a host sync."""
+    return torch.randint(0, _TWO32, (2,), dtype=torch.int64,
+                         generator=generator, device=generator.device)
+
+
+def _mulhilo(a, m):
+    """(hi, lo) 32-bit words of ``a * m`` for an int64 tensor ``a`` in
+    [0, 2^32) and a 32-bit constant ``m``, without int64 overflow."""
+    x = a * (m & 0xFFFF)            # < 2^48
+    y = a * (m >> 16)               # < 2^48
+    s = ((y & 0xFFFF) << 16) + x    # < 2^49
+    return (y >> 16) + (s >> 32), s & _MASK32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 of the counter (c0, c1, c2, c3) under the key (k0,
+    k1): int64 tensors (or ints) holding 32-bit words, broadcast together.
+    Returns the four 32-bit output words as int64 tensors."""
+    for r in range(PHILOX_ROUNDS):
+        if r:
+            k0 = (k0 + PHILOX_W0) & _MASK32
+            k1 = (k1 + PHILOX_W1) & _MASK32
+        hi0, lo0 = _mulhilo(c0, PHILOX_M0)
+        hi1, lo1 = _mulhilo(c2, PHILOX_M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def coin_fires(t, v, j, b, key, thr):
+    """Bool tensor of ``coin(t, v, j, b)`` for int64 tensors v, j, b of
+    one shape, step ``t`` (int), key (2,) int64 and threshold ``thr``."""
+    lanes = philox4x32_10(b >> 2, j, v, t, key[0], key[1])
+    r = torch.stack(lanes, dim=-1).gather(-1, (b & 3)[..., None])[..., 0]
+    return r < thr
+
+
+def pack_columns(mask):
+    """(n, B) bool -> (n, ceil(B / 32)) int32 words, column b in bit b % 32
+    of word b // 32; the bits past B are zero."""
+    n, B = mask.shape
+    W = -(-B // 32)
+    bits = torch.zeros((n, W * 32), dtype=torch.int64, device=mask.device)
+    bits[:, :B] = mask
+    weights = torch.ones(32, dtype=torch.int64, device=mask.device) << \
+        torch.arange(32, dtype=torch.int64, device=mask.device)
+    words = (bits.view(n, W, 32) * weights).sum(dim=2)
+    return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def unpack_columns(words, B):
+    """(n, W) int32 words -> (n, B) bool, the inverse of pack_columns."""
+    n, W = words.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[:, :, None] >> shifts) & 1
+    return bits.reshape(n, W * 32)[:, :B].bool()
+
+
+def pack_columns_np(mask):
+    """pack_columns of a numpy (n, B) bool array, on the host: (n, W)
+    int32 words (uploaded with one copy)."""
+    n, B = mask.shape
+    W = -(-B // 32)
+    packed = np.packbits(mask, axis=1, bitorder="little")
+    out = np.zeros((n, 4 * W), np.uint8)
+    out[:, :packed.shape[1]] = packed
+    return out.view("<u4").astype(np.uint32).view(np.int32)
+
+
+def column_mask_words(B, device):
+    """(W,) int32 words with the bits of columns 0..B-1 set, on
+    ``device``."""
+    return torch.as_tensor(pack_columns_np(np.ones((1, B), bool))[0],
+                           device=device)
+
+
+def _check(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
+           num_cols):
+    """Raises on what neither version takes."""
+    tensors = dict(table=table, ov_ptr=ov_ptr, ov_src=ov_src,
+                   seed_words=seed_words, key=key)
+    for name, x in tensors.items():
+        want = torch.int64 if name == "key" else torch.int32
+        if x.dtype != want:
+            raise TypeError(f"ic_cascade: {name} must be {want}, got "
+                            f"{x.dtype}")
+        if x.device != table.device:
+            raise ValueError(f"ic_cascade: {name} is on {x.device}, the "
+                             f"table on {table.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"ic_cascade: {name} must be contiguous")
+    if table.ndim != 2 or min(table.shape) < 1:
+        raise ValueError(f"ic_cascade: table must be (n, cap) with n, cap "
+                         f">= 1, got {tuple(table.shape)}")
+    n = table.shape[0]
+    if ov_ptr.shape != (n + 1,) or ov_src.ndim != 1:
+        raise ValueError(f"ic_cascade: ov_ptr must be ({n + 1},) and ov_src "
+                         f"1-d, got {tuple(ov_ptr.shape)} and "
+                         f"{tuple(ov_src.shape)}")
+    if key.shape != (2,):
+        raise ValueError(f"ic_cascade: key must be (2,), got "
+                         f"{tuple(key.shape)}")
+    if int(num_cols) < 1:
+        raise ValueError(f"ic_cascade: num_cols must be >= 1, got {num_cols}")
+    W = -(-int(num_cols) // 32)
+    if seed_words.shape != (n, W):
+        raise ValueError(f"ic_cascade: seed_words must be (n, W) = ({n}, "
+                         f"{W}) for {num_cols} columns, got "
+                         f"{tuple(seed_words.shape)}")
+    if not 0 <= int(thr) <= _TWO32:
+        raise ValueError(f"ic_cascade: thr must lie in [0, 2^32], got {thr}")
+    if int(max_iters) < 0:
+        raise ValueError(f"ic_cascade: max_iters must be >= 0, got "
+                         f"{max_iters}")
+
+
+def ic_cascade_reference(table, ov_ptr, ov_src, seed_words, key, thr,
+                         max_iters, num_cols, stats=None):
+    """Plain PyTorch cascade: (active (n, W) int32, counts (B,) int32,
+    steps (1,) int32), as the kernel gives them.
+
+    Every table slot and overflow in-edge is one (receiver v, slot j,
+    source u) triple (j = cap + o for overflow in-edge o). Each step
+    gathers the frontier words of the sources, keeps the bits whose
+    column is not yet active at v, draws those coins and ORs the fired
+    ones into ``hit``. A dict ``stats`` receives 'coins', the number of
+    coins drawn.
+    """
+    n, cap = table.shape
+    W = seed_words.shape[1]
+    dev = table.device
+    O = ov_src.shape[0]
+    rows = torch.arange(n, device=dev)
+    dst = torch.cat([rows.repeat_interleave(cap), torch.repeat_interleave(
+        rows, (ov_ptr[1:] - ov_ptr[:-1]).long(), output_size=O)])
+    slot = torch.cat([torch.arange(cap, device=dev).repeat(n),
+                      cap + torch.arange(O, device=dev)])
+    src = torch.cat([table.reshape(-1).long(), ov_src.long()])
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    chunk = max(1, _REF_CHUNK_WORDS // W)
+    active = seed_words.clone()
+    frontier = seed_words
+    steps = coins = 0
+    for t in range(int(max_iters)):
+        hit = torch.zeros(n * W * 32, dtype=torch.bool, device=dev)
+        for e0 in range(0, src.shape[0], chunk):
+            s, d = src[e0:e0 + chunk], dst[e0:e0 + chunk]
+            g = frontier[s] & ~active[d]  # attempts that can change hit
+            e, w = torch.nonzero(g, as_tuple=True)
+            bits = (g[e, w][:, None] >> shifts) & 1
+            k, bit = torch.nonzero(bits, as_tuple=True)
+            e, b = e[k], w[k] * 32 + bit
+            v = d[e]
+            fire = coin_fires(t, v, slot[e0 + e], b, key, thr)
+            coins += fire.shape[0]
+            hit[v[fire] * (W * 32) + b[fire]] = True
+        newly = pack_columns(hit.view(n, W * 32)) & ~active
+        active |= newly
+        frontier = newly
+        steps += 1
+        if not bool(newly.any()):  # one host sync per step
+            break
+    if stats is not None:
+        stats["coins"] = coins
+    counts = unpack_columns(active, int(num_cols)).sum(dim=0,
+                                                       dtype=torch.int32)
+    return active, counts, torch.tensor([steps], dtype=torch.int32,
+                                        device=dev)
+
+
+def _kernel_fn():
+    fn = _build.load("ic_cascade").graphem_ic_cascade_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    return fn
+
+
+def cascade_grid(device, items):
+    """Blocks of one cascade launch for ``items`` (vertex, word) pairs:
+    the card's resident blocks (the cooperative launch's limit), or fewer
+    where the pairs need fewer."""
+    per_sm = kernel_blocks_per_sm("ic_cascade",
+                                  "graphem_ic_cascade_blocks_per_sm", device,
+                                  THREADS)
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(sm_count * per_sm, -(-items // THREADS)))
+
+
+def ic_cascade_cuda(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
+                    num_cols):
+    """Launch the cascade kernel; same outputs as ic_cascade_reference."""
+    if not table.is_cuda:
+        raise ValueError("ic_cascade_cuda takes CUDA tensors")
+    dev = table.device
+    n, cap = table.shape
+    W = seed_words.shape[1]
+    active = torch.empty_like(seed_words)
+    frontier = torch.empty((2, n, W), dtype=torch.int32, device=dev)
+    ctl = torch.zeros(CTL_WORDS + int(num_cols), dtype=torch.int32,
+                      device=dev)
+    nb = cascade_grid(dev, n * W)
+    fn = _kernel_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        ic_cascade.launches += 1
+        rc = fn(table.data_ptr(), ov_ptr.data_ptr(), ov_src.data_ptr(),
+                seed_words.data_ptr(), active.data_ptr(),
+                frontier.data_ptr(), key.data_ptr(), ctl.data_ptr(), n, cap,
+                W, int(num_cols), int(thr), int(max_iters), nb, stream)
+    if rc != 0:
+        raise RuntimeError(f"ic_cascade kernel launch failed: CUDA error "
+                           f"{rc}")
+    return (active, ctl[CTL_WORDS:],
+            ctl[_STEPS_WORD:_STEPS_WORD + 1])
+
+
+def ic_cascade(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
+               num_cols):
+    """One cascade from the packed seed words: (active (n, W) int32,
+    counts (num_cols,) int32, steps (1,) int32), on the tensors' device.
+
+    The kernel for CUDA tensors (one launch, no host sync), the plain
+    version for CPU tensors.
+    """
+    _check(table, ov_ptr, ov_src, seed_words, key, thr, max_iters, num_cols)
+    if table.is_cuda:
+        return ic_cascade_cuda(table, ov_ptr, ov_src, seed_words, key, thr,
+                               max_iters, num_cols)
+    return ic_cascade_reference(table, ov_ptr, ov_src, seed_words, key, thr,
+                                max_iters, num_cols)
+
+
+ic_cascade.launches = 0

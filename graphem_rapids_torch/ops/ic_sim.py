@@ -8,25 +8,34 @@ its frontier is empty. The spread counts every activated node.
 Two frontier updates, as in the JAX package:
 
 - gather (``_ic_run_table``, the default): a self-padded in-neighbour table
-  turns the activation test into ``frontier[table]``, an (n, cap, B)
-  gather, a coin mask and ``.any(dim=1)``; the few above-cap hub edges are
-  folded with a sorted segment max (``scatter_reduce`` with ``amax``). The
-  state is (n, B) bool, the batch B on the minor axis;
+  (n, cap) int32 and the above-cap hub in-edges sorted by destination
+  (``build_cascade_plan``). The whole cascade is one call of
+  ``ops/ic_cascade.py``: on a card one launch of the CUDA kernel
+  ``csrc/ic_cascade.cu``, which holds the step loop, the frontier test and
+  the coins on the card as JAX's jitted ``while_loop`` does, on state
+  packed 32 columns to an int32 word; on the CPU its plain version. Coins
+  are Philox draws keyed by one 64-bit key from the caller's generator and
+  counted by (step, vertex, slot, column), so the card and the CPU give the
+  same counts from the same key;
 - scatter (``_ic_run``, the fallback for graphs whose table would exceed
-  TABLE_BUDGET_SLOTS): per-edge attempts folded with a segment max.
+  TABLE_BUDGET_SLOTS): per-edge attempts folded with a segment max, a
+  Python loop with one host sync per cascade step and coins from
+  ``torch.rand``.
 
-Coins come from an explicit ``torch.Generator`` on the state's device; its
-numbers differ from jax.random's, so the two packages agree in
-distribution, not run by run. The JAX ``while_loop`` is a Python loop
-here, and its ``frontier.any()`` test synchronizes with the device once per
-cascade step; fusing the steps (a CUDA graph, or a device-side loop) is
-later work.
+The coins differ from jax.random's, so the two packages agree in
+distribution, not run by run.
 """
 
 import numpy as np
 import torch
 
 from .forces import _optimal_table_cap
+from .ic_cascade import (
+    coin_threshold,
+    column_mask_words,
+    draw_key,
+    ic_cascade,
+)
 
 # Beyond this many table slots the gather formulation's memory stops paying
 # for itself; the scatter path takes over (the JAX package's bound).
@@ -71,15 +80,13 @@ def _ic_run(src, dst, seed_mask, p, generator, n, num_sims, max_iters):
     return active.sum(dim=1)
 
 
-def build_cascade_plan(edges, n, device):
-    """Self-padded in-neighbour table + hub overflow for the gather IC.
-
-    Returns None when the table would exceed TABLE_BUDGET_SLOTS, else a
-    dict on ``device`` with 'table' (n, cap) int64 (row v = in-neighbours
+def cascade_plan_arrays(edges, n):
+    """The gather IC's plan as numpy arrays, or None when the table would
+    exceed TABLE_BUDGET_SLOTS: 'table' (n, cap) int32 (row v = in-neighbours
     of v, padded with v: a self slot never creates an activation, because
-    v in the frontier implies v active), and 'ov_dst'/'ov_src' (O,) int64
-    sorted by dst (the above-cap hub edges).
-    """
+    v in the frontier implies v active), 'ov_dst'/'ov_src' (O,) int32 sorted
+    by dst (the above-cap hub in-edges) and 'ov_ptr' (n + 1,) int32, the
+    row starts of that list."""
     edges = np.asarray(edges, np.int64).reshape(-1, 2)
     src2 = np.concatenate([edges[:, 0], edges[:, 1]]).astype(np.int32)
     dst2 = np.concatenate([edges[:, 1], edges[:, 0]]).astype(np.int32)
@@ -94,50 +101,47 @@ def build_cascade_plan(edges, n, device):
     in_t = rank < cap
     table = np.repeat(np.arange(n, dtype=np.int32)[:, None], cap, axis=1)
     table[d_s[in_t], rank[in_t]] = s_s[in_t]
-
-    def put(a):
-        return torch.as_tensor(np.asarray(a, np.int64), device=device)
-
-    return {"table": put(table), "ov_dst": put(d_s[~in_t]),
-            "ov_src": put(s_s[~in_t])}
+    ov_ptr = np.zeros(n + 1, np.int32)
+    np.cumsum(np.maximum(deg_in - cap, 0), out=ov_ptr[1:])
+    return {"table": table, "ov_dst": d_s[~in_t], "ov_src": s_s[~in_t],
+            "ov_ptr": ov_ptr}
 
 
-def _ic_run_table(table, ov_dst, ov_src, seed_mask, p, generator, num_sims,
-                  max_iters):
-    """Gather-formulation batched IC cascade; state (n, B) bool.
+def upload_plan(arrays, device):
+    """The plan's arrays as int32 tensors on ``device``."""
+    return {k: torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                               device=device)
+            for k, a in arrays.items()}
 
-    seed_mask : (n,) bool, or (n, B) bool with one seed set per column (a
-    greedy candidate sweep folds C candidates x s runs into one batch).
-    Returns (B,) int64 final activated counts.
+
+def build_cascade_plan(edges, n, device):
+    """Self-padded in-neighbour table + hub overflow for the gather IC, on
+    ``device``: ``cascade_plan_arrays`` uploaded, or None beyond the
+    table budget."""
+    arrays = cascade_plan_arrays(edges, n)
+    return None if arrays is None else upload_plan(arrays, device)
+
+
+def seed_words(seed_mask, num_sims):
+    """Packed (n, W) int32 seed words of an (n,) bool mask, set in all
+    ``num_sims`` columns."""
+    full = column_mask_words(num_sims, seed_mask.device)
+    return torch.where(seed_mask[:, None], full, 0)
+
+
+def _ic_run_table(plan, words, p, generator, num_cols, max_iters):
+    """Gather-formulation batched IC cascade: one ``ic_cascade`` call.
+
+    words : (n, W) int32 packed seed words of ``num_cols`` columns, one
+    seed set per column (a greedy candidate sweep folds C candidates x s
+    runs into one batch). One key is drawn from ``generator``.
+    Returns (num_cols,) int32 final activated counts, on the plan's
+    device.
     """
-    n, _ = table.shape
-    O = ov_dst.shape[0]
-    dev = table.device
-    if seed_mask.ndim == 1:
-        active = seed_mask[:, None].expand(n, num_sims).clone()
-    else:
-        active = seed_mask.clone()
-    B = active.shape[1]
-    frontier = active.clone()
-    ov_rows = ov_dst[:, None].expand(O, B) if O else None
-    it = 0
-    while it < max_iters and bool(frontier.any()):  # one sync per step
-        fr_nb = frontier[table]  # (n, cap, B)
-        coins = torch.rand(fr_nb.shape, generator=generator, device=dev) < p
-        hit = (fr_nb & coins).any(dim=1)  # (n, B)
-        if O:
-            att = frontier[ov_src] & (
-                torch.rand((O, B), generator=generator, device=dev) < p
-            )
-            hit_ov = torch.zeros((n, B), dtype=torch.int32, device=dev)
-            hit_ov = hit_ov.scatter_reduce(0, ov_rows, att.to(torch.int32),
-                                           reduce="amax")
-            hit |= hit_ov > 0
-        newly = hit & ~active
-        active |= newly
-        frontier = newly
-        it += 1
-    return active.sum(dim=0)
+    _, counts, _ = ic_cascade(plan["table"], plan["ov_ptr"], plan["ov_src"],
+                              words, draw_key(generator), coin_threshold(p),
+                              int(max_iters), int(num_cols))
+    return counts
 
 
 def independent_cascade(edges, n, seeds, p=0.1, num_sims=64, max_iters=200,
@@ -157,16 +161,15 @@ def independent_cascade(edges, n, seeds, p=0.1, num_sims=64, max_iters=200,
 
     dev = resolve_device(device)
     edges = np.asarray(edges, np.int64).reshape(-1, 2)
-    seed_mask = torch.zeros(n, dtype=torch.bool, device=dev)
-    seed_idx = np.asarray(list(seeds), np.int64)
-    seed_mask[torch.as_tensor(seed_idx, device=dev)] = True
+    seed_np = np.zeros(n, bool)
+    seed_np[np.asarray(list(seeds), np.int64)] = True
+    seed_mask = torch.as_tensor(seed_np, device=dev)
     gen = _generator(key, dev)
     if plan is None:
         plan = build_cascade_plan(edges, n, dev)
     if plan is not None:
-        counts = _ic_run_table(plan["table"], plan["ov_dst"], plan["ov_src"],
-                               seed_mask, float(p), gen, int(num_sims),
-                               int(max_iters))
+        counts = _ic_run_table(plan, seed_words(seed_mask, int(num_sims)),
+                               float(p), gen, int(num_sims), int(max_iters))
         return counts.cpu().numpy(), max_iters
     src = torch.as_tensor(np.concatenate([edges[:, 0], edges[:, 1]]),
                           device=dev)

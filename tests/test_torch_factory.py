@@ -13,6 +13,10 @@ sum in another order).
 
 import itertools
 import logging
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,6 +27,8 @@ import graphem_rapids_torch as grt
 from graphem_rapids_torch.utils import backend_selection as tbs
 from graphem_rapids_torch.utils import memory_management as tmm
 from graphem_rapids_torch.utils import profiling as tprof
+
+REPO = Path(__file__).resolve().parent.parent
 
 STRATEGY_NAMES = (None, "auto", "exact", "chunked", "approx", "binfold",
                   "pallas", "sharded", "pytorch", "cuda", "gpu", "tpu", "cpu",
@@ -320,6 +326,27 @@ def test_backend_info_without_card(monkeypatch):
     assert info["cuda_device_count"] == 0 and info["cuda_device_name"] is None
     assert info["torch_version"] == torch.__version__
     assert info["recommended_backend"] == "chunked"
+
+
+@pytest.mark.fast
+def test_backend_info_console_entry_and_banner(monkeypatch, capsys):
+    """graphem-torch-info prints one status line and the strategy without
+    a card; the import banner is printed only under
+    GRAPHEM_RAPIDS_QUIET=false."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    grt.backend_info_main()
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith(f"GraphEm Rapids torch v{grt.__version__}")
+    assert f"torch {torch.__version__}" in lines[0] and "CUDA ✗" in lines[0]
+    assert lines[1] == "Recommended strategy: CHUNKED"
+    code = "import graphem_rapids_torch"
+    for quiet, printed in (("false", True), ("true", False)):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["GRAPHEM_RAPIDS_QUIET"] = quiet
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert ("Recommended strategy:" in out.stdout) == printed
 
 
 @pytest.mark.fast

@@ -21,6 +21,7 @@ from scipy.sparse.csgraph import connected_components
 import graphem_rapids_torch as grt
 from graphem_rapids_torch import influence as tinf
 from graphem_rapids_torch.ops import ic_sim as tic
+from graphem_rapids_torch.ops.ic_cascade import pack_columns
 
 
 def _adj(edges, n):
@@ -218,3 +219,45 @@ def test_default_device_needs_cuda(monkeypatch):
         grt.estimated_influence(adj, [1], p=0.1)
     with pytest.raises(RuntimeError, match="CUDA"):
         grt.greedy_seed_selection(adj, 2)
+
+
+@pytest.mark.fast
+def test_greedy_chunk_gains_match_jax():
+    """One gather-path greedy chunk: the port's gains equal the mean of
+    the same cascade's per-column counts (seed words packed directly
+    against the dense (n, C*s) mask, one key), and lie within 4 standard
+    errors of JAX's _marginal_chunk_table on the same candidates."""
+    jax = pytest.importorskip("jax")
+    jinf = pytest.importorskip("graphem_rapids_tpu.influence")
+    jic = pytest.importorskip("graphem_rapids_tpu.ops.ic_sim")
+    adj = _hub_graph()
+    edges, n = _lt_edges(adj), adj.shape[0]
+    cands = np.array([0, 1, 2, 3, 4, 90, 150, 0], np.int64)  # 0 twice
+    s, p, iters = 512, 0.2, 50
+    base = np.zeros(n, bool)
+    base[3] = True
+    plan = tic.build_cascade_plan(edges, n, "cpu")
+    base_t = torch.as_tensor(base)
+    got = tinf._marginal_chunk_table(
+        plan, base_t, p, torch.Generator().manual_seed(4),
+        torch.as_tensor(cands), s, iters).numpy()
+    dense = np.repeat(base[:, None], len(cands), axis=1)
+    dense[cands, np.arange(len(cands))] = True
+    dense = np.repeat(dense, s, axis=1)
+    counts = tic._ic_run_table(plan, pack_columns(torch.as_tensor(dense)), p,
+                               torch.Generator().manual_seed(4),
+                               len(cands) * s, iters).numpy()
+    runs = counts.reshape(len(cands), s).astype(float)
+    assert got[3] == -np.inf
+    keep = cands != 3
+    np.testing.assert_array_equal(got[keep],
+                                  runs.mean(axis=1).astype(np.float32)[keep])
+    jplan = jic.build_cascade_plan(edges.astype(np.int32), n)
+    want = np.asarray(jinf._marginal_chunk_table(
+        jplan["table"], jplan["ov_dst"], jplan["ov_src"], base, p,
+        jax.random.PRNGKey(4), cands.astype(np.int32), s, iters))
+    assert want[3] == -np.inf
+    se = np.sqrt(2 * runs.var(axis=1, ddof=1) / s)
+    assert (np.abs(got - want)[keep] < 4 * se[keep] + 1e-9).all(), (
+        got, want, se)
+    assert got[0] == got[7] or abs(got[0] - got[7]) < 4 * se[0]

@@ -89,6 +89,7 @@ def test_import_pulls_in_no_jax():
         "import sys, graphem_rapids_torch, graphem_rapids_torch.ops.knn, "
         "graphem_rapids_torch.ops.laplacian, graphem_rapids_torch.convert, "
         "graphem_rapids_torch.influence, graphem_rapids_torch.ops.ic_sim, "
+        "graphem_rapids_torch.ops.ic_cascade, "
         "graphem_rapids_torch.ops.knn_pallas, graphem_rapids_torch.utils, "
         "graphem_rapids_torch.utils.backend_selection, "
         "graphem_rapids_torch.utils.memory_management, "
