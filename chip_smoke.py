@@ -6,8 +6,10 @@
                                         # 10 iterations of each main-path,
                                         # quick-start and sharded graph (with
                                         # the host's launch calls), and of
-                                        # one IC call, and the sharded
-                                        # diagnostics of phases 11 and 13
+                                        # one IC call on each quick-start
+                                        # graph and on phase 23's, and the
+                                        # sharded diagnostics of phases 11
+                                        # and 13
     python3 chip_smoke.py --multi-card  # phases 1, 2 and 13 only (a host
                                         # with several cards; with --profile
                                         # each rank also times and traces
@@ -78,10 +80,14 @@ Phases:
    plan's host build, its upload and the cascade; the four cascades must
    be four ic_cascade launches;
 8. greedy: greedy_seed_selection on a small hub graph, the same seeds on
-   the card and on the CPU; then on a 2,000-vertex graph (four random
-   Hamiltonian cycles, k=5, p=0.1, 32 runs) through the cascade kernel and
-   through its plain version on the card: the same seeds and
-   evaluations, both timed;
+   the card and on the CPU, on the gather path and on the scatter path's
+   full sweep (TABLE_BUDGET_SLOTS patched to 0: three ic_scatter launches,
+   one chunk a round, and no ic_cascade launch); on the two-star graph
+   (centres 0 and 201, k=2, p=1, 4 runs) the card and the CPU must both
+   take [0, 201], the full sweep's seeds (CELF caches marginal gains);
+   then on a 2,000-vertex graph (four random Hamiltonian cycles, k=5,
+   p=0.1, 32 runs) through the cascade kernel and through its plain
+   version on the card: the same seeds and evaluations, both timed;
 9. card against CPU: a small graph, 5 injected-sample steps with
    knn_strategy='binfold', 'pallas' and 'approx', and 'binfold' with
    ref_order='slot', on the card and on the CPU, allclose;
@@ -214,21 +220,45 @@ Phases:
     the 100K plan (cap 8, no overflow) and the 1M plan (cap 13, 35,188
     overflow in-edges) with 10 random seeds in 64 columns at p=0.1, and at
     the hub graph's first greedy chunk (64 candidates x 32 runs, B=2048,
-    W=64) at p=0.2; each also at p=0 and p=1. Active words, counts and
+    W=64, run r of every candidate on the same coins, as greedy runs it)
+    at p=0.2; each also at p=0 and p=1. Active words, counts and
     steps must be bit-equal, one launch per cascade, p=0 exactly the seeds
     and p=1 exactly the seeds' components in every column. At each
     shape's own p: the steps, the coins drawn, the kernel's time per call
     and back to back, the plain version's, the bound (each input read and
     each output written once, against the coins' Philox instructions) and
     the per-step traffic model of the kernel's source note
-    (step_bytes_ms).
+    (step_bytes_ms);
+23. the scatter-form IC, run after phase 22, on ring + 36M chords at
+    12,000,000 vertices (bench.py's scale family; its cascade table, cap
+    13, would pass the 2^27-slot budget), built once and freed after the
+    phase: csrc/ic_scatter.cu (one cooperative launch per cascade) against
+    ic_scatter_reference on the same packed seed words and key, on the
+    directed edge lists of the 1M graph and the 12M graph (10 random seeds
+    in 64 columns, p=0.1) and of phase 22's hub greedy chunk (B=2048,
+    W=64, p=0.2), each also at p=0 and p=1: active words, counts and steps
+    bit-equal, one launch per cascade, p=0 exactly the seeds and p=1
+    exactly their components (all 12M vertices in every column); at each
+    shape's p the steps, the coins drawn, the kernel's time per call and
+    back to back, the plain version's (its compared run), the bound (src
+    read once, dst only for the edges behind a frontier bit, the seed and
+    active words once) and the per-step traffic model. Then the main
+    path: grt.estimated_influence on the 12M graph at p=0.1 over 64 runs
+    (its wall seconds, split into the edge extraction, the plan decision,
+    the directed lists' build and upload and the cascade, and its peak
+    memory), at p=0 and at p=1 (exact): three
+    ic_scatter launches and no ic_cascade launch. The phase adds about 45 s
+    to the run on an H100: the graph's build about 9 s, the plain version
+    at 12M about 17 s over its three calls (p=0.1 about 10 s, timed once
+    in the compared run), each 12M estimate about 6 s of host work.
 
-Each main-path, quick-start, greedy, sharded and toolkit phase zeroes the
-kernels' launch counts just before its timed run and reads them just
-after. A handler on the spectral init's logger records every tier-down
-warning, and a phase whose engines logged one fails. The line before the last is the
-kernel summary {"kernels": [...]}; the last line is {"ok": true,
-"device": {...}}. Any failure raises and exits nonzero.
+Each main-path, quick-start, greedy, scatter-path (23), sharded and
+toolkit phase zeroes the kernels' launch counts just before its timed run
+and reads them just after. A handler on the spectral init's logger
+records every tier-down warning, and a phase whose engines logged one
+fails. The line before the last is the kernel summary {"kernels": [...]};
+the last line is {"ok": true, "device": {...}}. Any failure raises and
+exits nonzero.
 """
 
 import contextlib
@@ -251,6 +281,14 @@ ITERS = 50
 # modulo sign (JAX's atol for its sharded runner against the single one)
 SPECTRAL_BLOCK_ATOL = 1e-4
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# the Philox key of phases 22 and 23's kernel-against-plain comparisons
+IC_KEY = (0x2545F491, 0x6C078965)
+# a Philox4x32-10 draw is about 78 integer instructions and serves up to
+# 4 coins
+PHILOX_INSTR = 78
+# phase 23's graph: the smallest of bench.py's scale family (ring + 3n
+# chords) whose cascade table passes the 2^27-slot budget (cap 13)
+SCATTER_N = 12_000_000
 # the host's CUDA calls that put work on a stream, counted by --profile
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
@@ -743,13 +781,32 @@ def hub_graph(seed=3):
     return a + a.T
 
 
+def two_stars_graph():
+    """Vertex 0 with leaves 1..200 and vertex 201 with leaves 202..251: at
+    p=1 greedy's second seed is 201 (a leaf of the first star gains
+    nothing)."""
+    import scipy.sparse as sp
+
+    e = np.array([(0, j) for j in range(1, 201)]
+                 + [(201, j) for j in range(202, 252)])
+    a = sp.coo_matrix((np.ones(len(e)), (e[:, 0], e[:, 1])),
+                      shape=(252, 252)).tocsr()
+    return a + a.T
+
+
 def phase_greedy(grt):
     """Phase 8: greedy seeds on the card equal those on the CPU (hub
-    graph); on a 2,000-vertex graph greedy through the cascade kernel
-    gives exactly the seeds of greedy through its plain version on the
-    card (the same coins). Returns the kernel's launches in the greedy
-    runs through it."""
+    graph), on the gather path and on the scatter path's full sweep (the
+    table budget patched to 0: one ic_scatter launch per chunk, no
+    ic_cascade launch); on the two-star graph at p=1 the card and the CPU
+    both take [0, 201] (greedy's CELF caches marginal gains); on a
+    2,000-vertex graph greedy through the cascade kernel gives exactly
+    the seeds of greedy through its plain version on the card (the same
+    coins). Returns the launches of ic_cascade and of ic_scatter in the
+    greedy runs through them."""
     from graphem_rapids_torch.ops import ic_cascade as icc
+    from graphem_rapids_torch.ops import ic_scatter as ics
+    from graphem_rapids_torch.ops import ic_sim as tic
 
     adj = hub_graph()
     kw = dict(p=0.2, iterations_count=50, num_sims=32, seed=0)
@@ -764,6 +821,45 @@ def phase_greedy(grt):
          ic_cascade_launches=launches)
     if card != cpu:
         raise AssertionError(f"greedy seeds differ: card {card}, cpu {cpu}")
+
+    budget = tic.TABLE_BUDGET_SLOTS
+    tic.TABLE_BUDGET_SLOTS = 0
+    try:
+        icc.ic_cascade.launches = 0
+        ics.ic_scatter.launches = 0
+        t0 = time.perf_counter()
+        card, evals = grt.greedy_seed_selection(adj, 3, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        scatter_launches = ics.ic_scatter.launches
+        gather = icc.ic_cascade.launches
+        cpu, cpu_evals = grt.greedy_seed_selection(adj, 3, device="cpu",
+                                                   **kw)
+    finally:
+        tic.TABLE_BUDGET_SLOTS = budget
+    emit("greedy", graph="hub_scatter_path", n=adj.shape[0],
+         seeds_card=card, seeds_cpu=cpu, evaluations=evals, seconds_card=dt,
+         ic_scatter_launches=scatter_launches, ic_cascade_launches=gather)
+    if (card, evals) != (cpu, cpu_evals) or gather != 0 or \
+            scatter_launches != 3:
+        raise AssertionError(f"scatter-path greedy: card {card} ({evals}), "
+                             f"cpu {cpu} ({cpu_evals}), {scatter_launches} "
+                             f"ic_scatter and {gather} ic_cascade launches "
+                             "(one chunk a round)")
+
+    adj = two_stars_graph()
+    kw2 = dict(p=1.0, iterations_count=200, num_sims=4, seed=0)
+    icc.ic_cascade.launches = 0
+    card, evals = grt.greedy_seed_selection(adj, 2, **kw2)
+    launches += icc.ic_cascade.launches
+    cpu, cpu_evals = grt.greedy_seed_selection(adj, 2, device="cpu", **kw2)
+    emit("greedy", graph="two_stars", n=adj.shape[0], p=1.0,
+         seeds_card=card, seeds_cpu=cpu, evaluations=evals,
+         evaluations_cpu=cpu_evals,
+         ic_cascade_launches=icc.ic_cascade.launches)
+    if card != [0, 201] or cpu != [0, 201]:
+        raise AssertionError(f"two-star greedy: card {card}, cpu {cpu}; the "
+                             "full sweep takes [0, 201]")
 
     adj = regular_union_graph(2000)
     kw = dict(p=0.1, iterations_count=200, num_sims=32, seed=0)
@@ -788,7 +884,7 @@ def phase_greedy(grt):
         raise AssertionError(f"greedy through the kernel {kern} ({evals}) "
                              f"and its plain version {plain} "
                              f"({plain_evals})")
-    return launches + kern_launches
+    return launches + kern_launches, scatter_launches
 
 
 def profile_steps(emb, label, untraced_ms_per_iter, iters=10):
@@ -998,8 +1094,10 @@ def phase_host_prep(graphs):
 @contextlib.contextmanager
 def ic_split():
     """Seconds of an IC estimate's stages inside: the edge extraction, the
-    cascade plan's build on the host, its upload and the cascade (each
-    stage ends in a synchronize)."""
+    cascade plan's build on the host (past the table budget only the
+    decision), its upload (the scatter path: the directed edge lists'
+    build and upload) and the cascade of either path (each stage ends in a
+    synchronize)."""
     from graphem_rapids_torch import influence as inf
     from graphem_rapids_torch.ops import ic_sim as tic
 
@@ -1007,7 +1105,9 @@ def ic_split():
     stages = [(inf, "_as_edges_and_n", "extract_s"),
               (tic, "cascade_plan_arrays", "plan_s"),
               (tic, "upload_plan", "upload_s"),
-              (tic, "_ic_run_table", "cascade_s")]
+              (tic, "directed_edges", "upload_s"),
+              (tic, "_ic_run_table", "cascade_s"),
+              (tic, "_ic_run", "cascade_s")]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in stages]
 
     def timed(fn, key):
@@ -1049,25 +1149,43 @@ def plain_cascade():
         tic.ic_cascade = saved
 
 
-def ic_cases(adj100k, adj1m, device="cuda"):
-    """Phase 22's shapes: (label, adj, (n, B) bool seed mask on the card,
-    p). The two main-path graphs with 10 random seeds in all 64 columns,
-    and the hub graph's first greedy chunk: candidates 0..63, 32 runs
-    each (column 32 c + r holds candidate c)."""
+def ic_cases(graphs, device="cuda"):
+    """Phases 22 and 23's shapes: (label, adj, (n, B) bool seed mask on
+    the card, p, runs). The (label, adj) ``graphs`` with 10 random seeds
+    in all 64 columns (every column its own coins), and the hub graph's
+    first greedy chunk: candidates 0..63, 32 runs each (column 32 c + r
+    holds candidate c; run r of every candidate draws the same coins, as
+    greedy runs it)."""
     out = []
-    for label, adj in (("random_8_regular_100k", adj100k),
-                       ("ring_chords_1m", adj1m)):
+    for label, adj in graphs:
         n = adj.shape[0]
         seeds = np.random.default_rng(0).choice(n, 10, replace=False)
         mask = torch.zeros((n, 64), dtype=torch.bool, device=device)
         mask[torch.as_tensor(seeds, device=device)] = True
-        out.append((label, adj, mask, 0.1))
+        out.append((label, adj, mask, 0.1, None))
     hub = hub_graph()
     mask = torch.zeros((hub.shape[0], 64), dtype=torch.bool, device=device)
     mask[torch.arange(64), torch.arange(64)] = True
     out.append(("hub_greedy_chunk", hub,
-                mask.repeat_interleave(32, dim=1), 0.2))
+                mask.repeat_interleave(32, dim=1), 0.2, 32))
     return out
+
+
+def exact_counts(adj, mask):
+    """{0.0: counts at p=0, 1.0: counts at p=1} of the (n, B) seed mask:
+    p=0 leaves exactly the seeds, p=1 activates every vertex whose
+    connected component holds a seed of the column."""
+    from scipy.sparse.csgraph import connected_components
+
+    _, comp = connected_components(adj, directed=False)
+    comp = torch.as_tensor(comp, device=mask.device)
+    hit = torch.zeros((mask.shape[1], int(comp.max()) + 1), dtype=torch.bool,
+                      device=mask.device)
+    cols, rows = torch.nonzero(mask.t(), as_tuple=True)
+    hit[cols, comp[rows]] = True
+    sizes = torch.bincount(comp).to(torch.int64)
+    return {0.0: mask.sum(dim=0),
+            1.0: (hit.to(torch.int64) * sizes).sum(dim=1)}
 
 
 def phase_ic_kernel(fp32_instr_per_s, adj100k, adj1m, device="cuda"):
@@ -1077,35 +1195,24 @@ def phase_ic_kernel(fp32_instr_per_s, adj100k, adj1m, device="cuda"):
     exactly the seeds and p=1 exactly their components. At each shape's p
     the kernel's time per call and back to back, the plain version's, and
     the bounds. Returns the 1M shape's numbers for the kernel summary."""
-    from scipy.sparse.csgraph import connected_components
-
     from graphem_rapids_torch.influence import _as_edges_and_n
     from graphem_rapids_torch.ops import ic_cascade as icc
     from graphem_rapids_torch.ops import ic_sim as tic
 
-    key = torch.tensor([0x2545F491, 0x6C078965], dtype=torch.int64,
-                       device=device)
+    key = torch.tensor(IC_KEY, dtype=torch.int64, device=device)
     out = {"max_abs_err": 0}
-    for label, adj, mask, p in ic_cases(adj100k, adj1m, device):
+    graphs = [("random_8_regular_100k", adj100k), ("ring_chords_1m", adj1m)]
+    for label, adj, mask, p, runs in ic_cases(graphs, device):
         edges, n = _as_edges_and_n(adj)
         plan = tic.build_cascade_plan(edges, n, device)
         table, ptr, src = plan["table"], plan["ov_ptr"], plan["ov_src"]
         cap, O, B = table.shape[1], src.shape[0], mask.shape[1]
         W = -(-B // 32)
         words = icc.pack_columns(mask)
-        _, comp = connected_components(adj, directed=False)
-        comp = torch.as_tensor(comp, device=device)
-        # p=1 activates every vertex whose component holds a seed
-        hit = torch.zeros((B, int(comp.max()) + 1), dtype=torch.bool,
-                          device=device)
-        cols, rows = torch.nonzero(mask.t(), as_tuple=True)
-        hit[cols, comp[rows]] = True
-        sizes = torch.bincount(comp).to(torch.int64)
-        exact = {0.0: mask.sum(dim=0),
-                 1.0: (hit.to(torch.int64) * sizes).sum(dim=1)}
+        exact = exact_counts(adj, mask)
         for pp in (p, 0.0, 1.0):
             thr = icc.coin_threshold(pp)
-            args = (table, ptr, src, words, key, thr, 200, B)
+            args = (table, ptr, src, words, key, thr, 200, B, runs)
             before = icc.ic_cascade.launches
             got = icc.ic_cascade(*args)
             torch.cuda.synchronize()
@@ -1117,7 +1224,7 @@ def phase_ic_kernel(fp32_instr_per_s, adj100k, adj1m, device="cuda"):
             out["max_abs_err"] = max(out["max_abs_err"], err)
             steps = int(got[2])
             row = dict(graph=label, n=n, cap=cap, W=W, B=B, O=O, p=pp,
-                       steps=steps, launches_per_cascade=launches,
+                       runs=runs, steps=steps, launches_per_cascade=launches,
                        bit_equal=equal, coins=stats["coins"],
                        mean_count=float(got[1].double().mean()))
             if pp in exact:
@@ -1136,9 +1243,7 @@ def phase_ic_kernel(fp32_instr_per_s, adj100k, adj1m, device="cuda"):
                 step_bytes = (4 * (n * cap + O + n + 1)
                               + 32 * (n * cap + O) * -(-W // 8)
                               + 16 * n * W)
-                # a Philox4x32-10 draw is about 78 integer instructions
-                # and serves up to 4 coins
-                ops = stats["coins"] * 78 / 4
+                ops = stats["coins"] * PHILOX_INSTR / 4
                 bytes_ms = io_bytes / H100_HBM_BYTES_PER_S * 1e3
                 ops_ms = ops / fp32_instr_per_s * 1e3
                 bound = max(bytes_ms, ops_ms)
@@ -1160,6 +1265,141 @@ def phase_ic_kernel(fp32_instr_per_s, adj100k, adj1m, device="cuda"):
         del plan, table, ptr, src, words
     torch.cuda.empty_cache()
     return out
+
+
+def phase_ic_scatter(fp32_instr_per_s, adj1m, adj12m, device="cuda"):
+    """Phase 23, first part: the scatter cascade kernel against its plain
+    version on the card, bit for bit (active words, counts, steps), on the
+    directed edge lists of the 1M and 12M graphs (10 random seeds in 64
+    columns, p=0.1) and of the hub graph's first greedy chunk (B=2048,
+    W=64, p=0.2), each also at p=0 and p=1; one launch per cascade; p=0
+    leaves exactly the seeds and p=1 exactly their components. At each
+    shape's p the kernel's time per call and back to back, the plain
+    version's in the compared run, and the bounds. Returns the 12M shape's
+    numbers for the kernel summary."""
+    from graphem_rapids_torch.influence import _as_edges_and_n
+    from graphem_rapids_torch.ops import ic_cascade as icc
+    from graphem_rapids_torch.ops import ic_scatter as ics
+    from graphem_rapids_torch.ops import ic_sim as tic
+
+    key = torch.tensor(IC_KEY, dtype=torch.int64, device=device)
+    out = {"max_abs_err": 0}
+    graphs = [("ring_chords_1m", adj1m), ("ring_chords_12m", adj12m)]
+    for label, adj, mask, p, runs in ic_cases(graphs, device):
+        edges, n = _as_edges_and_n(adj)
+        src, dst = tic.directed_edges(edges, device)
+        del edges
+        E2, B = src.shape[0], mask.shape[1]
+        W = -(-B // 32)
+        words = icc.pack_columns(mask)
+        exact = exact_counts(adj, mask)
+        for pp in (p, 0.0, 1.0):
+            args = (src, dst, words, key, icc.coin_threshold(pp), 200, B,
+                    runs)
+            before = ics.ic_scatter.launches
+            got = ics.ic_scatter(*args)
+            torch.cuda.synchronize()
+            launches = ics.ic_scatter.launches - before
+            stats = {}
+            t0 = time.perf_counter()
+            want = ics.ic_scatter_reference(*args, stats=stats)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            err = int((got[1] - want[1]).abs().max())
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            steps = int(got[2])
+            row = dict(graph=label, n=n, E2=E2, W=W, B=B, p=pp, runs=runs,
+                       steps=steps,
+                       launches_per_cascade=launches, bit_equal=equal,
+                       coins=stats["coins"], attempted=stats["attempted"],
+                       plain_s=plain_s,
+                       mean_count=float(got[1].double().mean()))
+            if pp in exact:
+                row["exact"] = bool(torch.equal(got[1].to(torch.int64),
+                                                exact[pp].to(torch.int64)))
+            if pp == p:
+                ms = cuda_ms(lambda: ics.ic_scatter(*args))
+                b2b = back_to_back_ms(lambda: ics.ic_scatter(*args))
+                plain_ms = plain_s * 1e3  # the compared run's
+                # each input read once (src; dst only for the edges whose
+                # source was in the frontier, as the coin's counter holds
+                # dst[e]; the seed words; the key) and each output written
+                # once (active words, counts, steps)
+                io_bytes = (4 * (E2 + stats["attempted"] + 2 * n * W + B + 1)
+                            + 16)
+                # per step: src, one 32-byte sector per edge's frontier row
+                # of W words, and pass 2's hit and frontier words
+                step_bytes = 4 * E2 + 32 * E2 * -(-W // 8) + 8 * n * W
+                ops = stats["coins"] * PHILOX_INSTR / 4
+                bytes_ms = io_bytes / H100_HBM_BYTES_PER_S * 1e3
+                ops_ms = ops / fp32_instr_per_s * 1e3
+                bound = max(bytes_ms, ops_ms)
+                row.update(kernel_ms=ms, back_to_back_ms=b2b,
+                           plain_ms=plain_ms, io_bytes=io_bytes, ops=ops,
+                           bound_ms=bound,
+                           bound_by="bytes" if bytes_ms >= ops_ms
+                           else "operations",
+                           step_bytes=step_bytes,
+                           step_bytes_ms=steps * step_bytes
+                           / H100_HBM_BYTES_PER_S * 1e3,
+                           share_of_bound_back_to_back=bound / b2b)
+                if adj is adj12m:
+                    out.update(ms=ms, back_to_back_ms=b2b, plain_ms=plain_ms,
+                               bound_ms=bound, bound_by=row["bound_by"])
+            emit("ic_scatter", **row)
+            if not equal or launches != 1 or not row.get("exact", True):
+                raise AssertionError(f"ic_scatter {label} p={pp}: {row}")
+            del got, want
+        del src, dst, words, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_scatter_main(grt, adj, profile):
+    """Phase 23, second part: the scatter path through the public entry
+    point. estimated_influence of 10 random vertices on the 12M graph at
+    p=0.1 over 64 runs, timed with its split (edge extraction, the plan
+    decision, the directed edge lists' build and upload, the cascade) and
+    its peak device memory, then at p=0 (exactly the seeds) and p=1 (all
+    12M vertices, the ring is connected): three cascades, three
+    ic_scatter launches and no ic_cascade launch. Returns the launches."""
+    from graphem_rapids_torch.ops import ic_cascade as icc
+    from graphem_rapids_torch.ops import ic_scatter as ics
+
+    n = adj.shape[0]
+    seeds = np.random.default_rng(0).choice(n, 10, replace=False).tolist()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    icc.ic_cascade.launches = 0
+    ics.ic_scatter.launches = 0
+    with ic_split() as split:
+        t0 = time.perf_counter()
+        spread = grt.estimated_influence(adj, seeds, p=0.1, num_sims=64)
+        ic_s = time.perf_counter() - t0
+    split["other_s"] = ic_s - sum(split.values())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    p0 = grt.estimated_influence(adj, seeds, p=0.0, num_sims=64)
+    p1 = grt.estimated_influence(adj, seeds, p=1.0, num_sims=64)
+    launches, gather = ics.ic_scatter.launches, icc.ic_cascade.launches
+    emit("scatter_influence", graph="ring_chords_12m", n=n,
+         E=int(adj.nnz // 2), p=0.1, num_sims=64, ic_seconds=ic_s,
+         split=split, peak_mem_gib=peak, spread=spread, p0_spread=p0,
+         p1_spread=p1, cascades=3, ic_scatter_launches=launches,
+         ic_cascade_launches=gather)
+    if p0 != 10.0 or p1 != float(n) or not 10.0 <= spread < n:
+        raise AssertionError(f"scatter path: p=0 -> {p0} (want 10), p=1 -> "
+                             f"{p1} (want {n}), p=0.1 -> {spread}")
+    if launches != 3 or gather != 0:
+        raise AssertionError(f"scatter path: {launches} ic_scatter and "
+                             f"{gather} ic_cascade launches for 3 cascades")
+    if profile:
+        profile_call(
+            "profile_ic", "ring_chords_12m",
+            lambda: grt.estimated_influence(adj, seeds, p=0.1, num_sims=64),
+            lambda: grt.estimated_influence(adj, seeds, p=0.1, num_sims=64),
+            ic_s * 1e3, 1)
+    return launches
 
 
 @contextlib.contextmanager
@@ -2401,6 +2641,11 @@ def main(argv):
     phase_host_prep([("random_8_regular_100k", adj100k, "flat"),
                      ("ring_chords_1m", adj1m, "binned")])
     ic = phase_ic_kernel(fp32_instr_per_s, adj100k, adj1m)
+    adj12m = ring_chords_graph(SCATTER_N, 3 * SCATTER_N)
+    scatter = phase_ic_scatter(fp32_instr_per_s, adj1m, adj12m)
+    scatter_launches = phase_scatter_main(grt, adj12m, profile)
+    del adj12m
+    torch.cuda.empty_cache()
     starts = phase_spectral(log, [
         ("ring_chords_100k", ring_chords_graph(100_000, 300_000), "eigsh"),
         ("hub_chords_100k", hub_chords_graph(), "block_plan"),
@@ -2418,7 +2663,9 @@ def main(argv):
     k2_1m, ic_1m = phase_quickstart(grt, bf, kp, "ring_chords_1m", adj1m,
                                     "random", warmup=5, profile=profile)
     k2_launches += k2_1m
-    ic_launches += ic_1m + phase_greedy(grt)
+    greedy_ic, greedy_scatter = phase_greedy(grt)
+    ic_launches += ic_1m + greedy_ic
+    scatter_launches += greedy_scatter
     for strategy in ("binfold", "pallas", "approx"):
         phase_card_vs_cpu(grt, strategy)
     phase_card_vs_cpu(grt, "binfold", ref_order="slot")
@@ -2524,6 +2771,19 @@ def main(argv):
         "plain_ms": ic["plain_ms"],
         "bound_ms": ic["bound_ms"],
         "bound_by": ic["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "ic_scatter",
+        "route": "cuda",
+        "source": "graphem_rapids_torch/csrc/ic_scatter.cu",
+        "replaces": "graphem_rapids_tpu/ops/ic_sim.py:49",
+        "launches": scatter_launches,
+        "max_abs_err": scatter["max_abs_err"],
+        "ms": scatter["ms"],
+        "back_to_back_ms": scatter["back_to_back_ms"],
+        "plain_ms": scatter["plain_ms"],
+        "bound_ms": scatter["bound_ms"],
+        "bound_by": scatter["bound_by"],
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

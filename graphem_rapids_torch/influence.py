@@ -24,13 +24,15 @@ from .ops.ic_sim import (
     _ic_run,
     _ic_run_table,
     build_cascade_plan,
+    directed_edges,
     independent_cascade,
 )
 
 # Most candidates of one scatter-path sweep chunk (the JAX package's bound).
 GREEDY_CAND_CHUNK = 1024
-# Bound on the (C * num_sims, 2E) coin block of one scatter-path chunk.
-_SCATTER_CHUNK_SLOTS = 1 << 26
+# Bound on the (n, W) packed words of one scatter-path chunk's cascade
+# (each of the scatter kernel's four state arrays: 512 MB).
+_SCATTER_STATE_WORDS = 1 << 27
 
 
 def _as_edges_and_n(G):
@@ -107,50 +109,69 @@ def estimated_influence(G, seeds, p=0.1, iterations_count=200, num_sims=64,
     return float(np.mean(counts))
 
 
-def _batched_marginal(src, dst, base_mask, p, generator, cand_ids, num_sims,
-                      max_iters):
-    """Spread of base_mask + each candidate, on the scatter simulator.
-
-    The C candidates x num_sims runs are the rows of one (C * num_sims, n)
-    batch; a candidate already in the seed set gets -inf.
-    """
-    n = base_mask.shape[0]
+def _chunk_words(base_mask, cand_ids, num_sims, base_runs=0):
+    """Packed (n, W) seed words of one greedy chunk, and its column count
+    B = C * num_sims + base_runs: column c * s + r is run r of candidate
+    c (every base vertex and candidate c), the last ``base_runs`` columns
+    hold the base alone."""
     C = cand_ids.shape[0]
-    seed = base_mask.expand(C, n).clone()
-    seed[torch.arange(C, device=seed.device), cand_ids] = True
-    seed = seed.repeat_interleave(num_sims, dim=0)  # (C*s, n)
-    counts = _ic_run(src, dst, seed, p, generator, n, C * num_sims,
-                     max_iters)
-    gains = counts.reshape(C, num_sims).to(torch.float32).mean(dim=1)
-    return torch.where(base_mask[cand_ids], -torch.inf, gains)
-
-
-def _marginal_chunk_table(plan, base_mask, p, generator, cand_ids, num_sims,
-                          max_iters):
-    """Spread of base_mask + each candidate, on the gather simulator.
-
-    The C candidates x num_sims runs are the columns of one (n, C * s)
-    cascade (column c * s + r is run r of candidate c), whose packed seed
-    words are built directly: every column of a base vertex, and
-    candidate c's s columns in its row. One ``ic_cascade`` call, one key
-    drawn from ``generator``. A candidate already in the seed set gets
-    -inf.
-    """
-    C = cand_ids.shape[0]
-    B = C * num_sims
+    B = C * num_sims + base_runs
     dev = base_mask.device
-    full = column_mask_words(B, dev)
-    words = torch.where(base_mask[:, None], full, 0)
-    cand_bits = torch.as_tensor(pack_columns_np(
-        np.repeat(np.eye(C, dtype=bool), num_sims, axis=1)), device=dev)
+    words = torch.where(base_mask[:, None], column_mask_words(B, dev), 0)
+    cand = np.zeros((C, B), bool)
+    cand[:, :C * num_sims] = np.repeat(np.eye(C, dtype=bool), num_sims,
+                                       axis=1)
+    cand_bits = torch.as_tensor(pack_columns_np(cand), device=dev)
     # the candidates' column sets are disjoint, so the sum over a row that
     # appears twice (the padded tail of a chunk) is their OR
     cand_words = torch.zeros_like(words).index_put_(
         (cand_ids,), cand_bits, accumulate=True)
-    counts = _ic_run_table(plan, words | cand_words, p, generator, B,
-                           max_iters)
-    gains = counts.reshape(C, num_sims).to(torch.float32).mean(dim=1)
+    return words | cand_words, B
+
+
+def _chunk_gains(counts, base_mask, cand_ids, num_sims):
+    """Mean spread of each candidate's runs; where the cascade had base
+    runs after them, less their mean (sigma(S + v) - sigma(S)). A
+    candidate already in the seed set gets -inf."""
+    C = cand_ids.shape[0]
+    counts = counts.to(torch.float32)
+    gains = counts[:C * num_sims].reshape(C, num_sims).mean(dim=1)
+    if counts.shape[0] > C * num_sims:
+        gains = gains - counts[C * num_sims:].mean()
     return torch.where(base_mask[cand_ids], -torch.inf, gains)
+
+
+def _batched_marginal(src, dst, base_mask, p, generator, cand_ids, num_sims,
+                      max_iters):
+    """Spread of base_mask + each candidate, on the scatter simulator.
+
+    The C candidates x num_sims runs are the columns of one (n, C * s)
+    cascade (``_chunk_words``), run r of every candidate drawing the same
+    coins: one ``ic_scatter`` call, one key drawn from ``generator``. A
+    candidate already in the seed set gets -inf.
+    """
+    words, B = _chunk_words(base_mask, cand_ids, num_sims)
+    counts = _ic_run(src, dst, words, p, generator, B, max_iters, num_sims)
+    return _chunk_gains(counts, base_mask, cand_ids, num_sims)
+
+
+def _marginal_chunk_table(plan, base_mask, p, generator, cand_ids, num_sims,
+                          max_iters, base_runs):
+    """Marginal gains of a chunk of candidates, on the gather simulator.
+
+    The C candidates x num_sims runs are the first columns of one cascade
+    (``_chunk_words``: column c * s + r is run r of candidate c); with
+    ``base_runs`` = num_sims the base alone follows in as many columns,
+    which estimate sigma(S) in the same launch, and each gain is sigma(S +
+    v) - sigma(S) (with no base runs, sigma(S + v): right for an empty
+    base, whose sigma is 0). Run r of every candidate and of the base
+    draws the same coins (common random numbers), so the noise of sigma(S)
+    cancels in each gain. One ``ic_cascade`` call, one key drawn from
+    ``generator``. A candidate already in the seed set gets -inf.
+    """
+    words, B = _chunk_words(base_mask, cand_ids, num_sims, base_runs)
+    counts = _ic_run_table(plan, words, p, generator, B, max_iters, num_sims)
+    return _chunk_gains(counts, base_mask, cand_ids, num_sims)
 
 
 def greedy_seed_selection(G, k, p=0.1, iterations_count=200, num_sims=32,
@@ -159,12 +180,20 @@ def greedy_seed_selection(G, k, p=0.1, iterations_count=200, num_sims=32,
 
     Candidates x Monte-Carlo runs fold into one batched cascade per chunk
     on the gather simulator (one ``ic_cascade`` launch per chunk on a
-    card); rounds after the first re-evaluate only the
-    C highest stale candidates (batched CELF, as the JAX package does).
-    Graphs whose cascade table exceeds the budget take the full sweep of
-    ``_greedy_scatter``.
+    card). The first round estimates every candidate's spread; later
+    rounds are CELF: the cached marginal gains sigma(S + v) - sigma(S) are
+    upper bounds of the current ones (submodularity), so the C highest
+    stale candidates are re-evaluated, chunk after chunk, until the top
+    candidate is fresh. Each re-evaluation estimates sigma(S) from
+    ``num_sims`` base-only runs in the same cascade, run r of the base and
+    of every candidate drawing the same coins. (The JAX package's CELF
+    caches sigma(S + v), which are lower bounds.) Ties go to the lowest
+    vertex id, as the full sweep's argmax. Graphs whose cascade table
+    exceeds the budget take the full sweep of ``_greedy_scatter``.
 
-    Returns (seeds list, total simulated cascades).
+    Returns (seeds list, total simulated runs: num_sims for every
+    candidate evaluated, and for every base group of a re-evaluation; the
+    padded tail of the first round's last chunk is not counted).
     """
     dev = resolve_device(device)
     edges, n = _as_edges_and_n(G)
@@ -183,25 +212,25 @@ def greedy_seed_selection(G, k, p=0.1, iterations_count=200, num_sims=32,
     cand_all = np.zeros(n_pad, np.int64)
     cand_all[:n] = np.arange(n)
 
-    def eval_chunk(cands_np, base_mask):
+    def eval_chunk(cands_np, base_runs):
         return _marginal_chunk_table(
             plan, base_mask, float(p), gen,
             torch.as_tensor(cands_np, device=dev), int(num_sims),
-            int(iterations_count),
+            int(iterations_count), base_runs,
         ).cpu().numpy()
 
     seeds = []
     total_evals = 0
     base_mask = torch.zeros(n, dtype=torch.bool, device=dev)
     gains = np.full(n_pad, -np.inf, np.float32)
-    for c0 in range(0, n_pad, C):
-        gains[c0:c0 + C] = eval_chunk(cand_all[c0:c0 + C], base_mask)
+    for c0 in range(0, n_pad, C):  # sigma(empty set) = 0: no base runs
+        gains[c0:c0 + C] = eval_chunk(cand_all[c0:c0 + C], 0)
     gains = gains[:n]
     total_evals += n * num_sims
     fresh = np.ones(n, bool)
 
     while len(seeds) < k:
-        order = np.argsort(-gains)
+        order = np.argsort(-gains, kind="stable")
         top = int(order[0])
         if fresh[top]:
             seeds.append(top)
@@ -209,31 +238,35 @@ def greedy_seed_selection(G, k, p=0.1, iterations_count=200, num_sims=32,
             gains[top] = -np.inf
             fresh[:] = False
             continue
-        # batched CELF: re-evaluate the C highest stale candidates
+        # CELF: re-evaluate the C highest stale candidates
         stale_top = order[~fresh[order]][:C]
         batch = np.zeros(C, np.int64)
         batch[:len(stale_top)] = stale_top
-        vals = eval_chunk(batch, base_mask)
+        vals = eval_chunk(batch, int(num_sims))
         gains[stale_top] = vals[:len(stale_top)]
         fresh[stale_top] = True
-        total_evals += len(stale_top) * num_sims
+        total_evals += (len(stale_top) + 1) * num_sims
     return seeds, total_evals
+
+
+def _scatter_chunk(n, num_sims):
+    """Candidates of one scatter-path chunk: GREEDY_CAND_CHUNK (the JAX
+    package's), at most n, and fewer where the (n, W) words of C *
+    num_sims columns would pass _SCATTER_STATE_WORDS."""
+    cols = 32 * (_SCATTER_STATE_WORDS // max(n, 1))
+    return max(1, min(GREEDY_CAND_CHUNK, n, cols // max(num_sims, 1)))
 
 
 def _greedy_scatter(edges, n, k, p, iterations_count, num_sims, generator):
     """Full-sweep greedy on the scatter simulator: every round evaluates
-    every candidate. The fallback for graphs beyond the gather budget."""
+    every candidate, C at a time (``_scatter_chunk``), one ``ic_scatter``
+    call each. The fallback for graphs beyond the gather budget."""
     dev = generator.device
-    edges = np.asarray(edges, np.int64).reshape(-1, 2)
-    src = torch.as_tensor(np.concatenate([edges[:, 0], edges[:, 1]]),
-                          device=dev)
-    dst = torch.as_tensor(np.concatenate([edges[:, 1], edges[:, 0]]),
-                          device=dev)
+    src, dst = directed_edges(edges, dev)
     seeds = []
     total_evals = 0
     base_mask = torch.zeros(n, dtype=torch.bool, device=dev)
-    per_cand = max(num_sims * max(len(src), n), 1)
-    C = max(1, min(GREEDY_CAND_CHUNK, n, _SCATTER_CHUNK_SLOTS // per_cand))
+    C = _scatter_chunk(n, num_sims)
     cand_all = torch.arange(n, device=dev)
     for _ in range(k):
         gains = torch.cat([

@@ -26,21 +26,26 @@ self pad never activates anyone (v in the frontier means v active).
 
 The coin. One fixed function, shared by the kernel and the plain version:
 
-    coin(t, v, j, b) = philox4x32_10(counter=(b >> 2, j, v, t), key)[b & 3] < thr
+    coin(t, v, j, b) = philox4x32_10(counter=(r >> 2, j, v, t), key)[r & 3] < thr
 
-``key`` is one 64-bit Philox key, two 32-bit words held as a (2,) int64
+with ``r = b mod runs``. ``runs`` is B by default, so every column draws its
+own coins; a greedy chunk passes its runs per candidate, so that run r of
+every candidate and of the base group draws the same coins (common random
+numbers: the difference of two groups' spreads then carries much less of
+their noise). ``key`` is one 64-bit Philox key, two 32-bit words held as a (2,) int64
 device tensor drawn from the caller's generator (``draw_key``), so the
 host never reads it. ``thr = floor(p * 2^32)`` clipped to [0, 2^32]
 (``coin_threshold``): p = 0 never fires and p = 1 always fires. The
-counter (step, receiving vertex, slot, column) is distinct for every coin
-of a cascade, so a coin is the same whoever draws it and whenever: both
+counter (step, receiving vertex, slot, run) names each coin of a cascade,
+so a coin is the same whoever draws it and whenever: both
 versions draw only where an attempt can change the result (a frontier bit
 at the source and the column not yet active or hit at the receiver), and
 get the coins they would get by drawing them all. The coins are not
 ``jax.random``'s; the two packages agree in distribution.
 
 ``ic_cascade_reference`` is the plain version, a Python loop of torch ops
-(one host sync per step). ``ic_cascade`` runs it for tensors on the CPU and
+(``cascade_triples``, shared with the scatter form of ``ops/ic_scatter.py``;
+one host sync per step). ``ic_cascade`` runs it for tensors on the CPU and
 launches the kernel for CUDA tensors, or raises; ``ic_cascade.launches``
 counts the kernel's launches.
 """
@@ -61,16 +66,18 @@ PHILOX_ROUNDS = 10
 _MASK32 = 0xFFFFFFFF
 _TWO32 = 1 << 32
 
-# Threads per block of the kernel (csrc/ic_cascade.cu kThreads).
+# Threads per block of the cascade kernels (csrc/ic_common.cuh kThreads).
 THREADS = 256
 # The wrapper's int32 control buffer: the kernel's control block (two
 # 64-bit activation totals by step parity, the 64-bit barrier count, the
 # step count) in the first CTL_WORDS words, the (B,) counts after it.
 CTL_WORDS = 8
-_STEPS_WORD = 6
+STEPS_WORD = 6
+# The bits of a byte, for the plain version's packing of its hit flags.
+_BYTE_BITS = torch.tensor([1 << k for k in range(8)], dtype=torch.uint8)
 # Slots of the plain version's gather per chunk: bounds its working set
 # (about 100 bytes per attempted coin) on a card at the 1M-vertex plan.
-_REF_CHUNK_WORDS = 1 << 20
+REF_CHUNK_WORDS = 1 << 20
 
 
 def coin_threshold(p):
@@ -157,21 +164,56 @@ def column_mask_words(B, device):
                            device=device)
 
 
-def _check(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
-           num_cols):
-    """Raises on what neither version takes."""
-    tensors = dict(table=table, ov_ptr=ov_ptr, ov_src=ov_src,
-                   seed_words=seed_words, key=key)
-    for name, x in tensors.items():
-        want = torch.int64 if name == "key" else torch.int32
+def check_runs(num_cols, runs):
+    """``runs`` (None: ``num_cols``) as an int in [1, num_cols], or
+    raises."""
+    runs = int(num_cols) if runs is None else int(runs)
+    if not 1 <= runs <= int(num_cols):
+        raise ValueError(f"runs must lie in [1, num_cols = {num_cols}], got "
+                         f"{runs}")
+    return runs
+
+
+def check_packed(name, tensors, seed_words, key, thr, max_iters, num_cols,
+                 runs):
+    """Raises on what the packed-state contract of both cascade kernels
+    (``name``) does not take: ``tensors`` (int32) and the key (int64) on
+    the seed words' device, contiguous; (n, W) seed words with W words for
+    ``num_cols`` columns; a (2,) key; thr in [0, 2^32]; max_iters >= 0;
+    runs in [1, num_cols]."""
+    tensors = dict(tensors, seed_words=seed_words, key=key)
+    for label, x in tensors.items():
+        want = torch.int64 if label == "key" else torch.int32
         if x.dtype != want:
-            raise TypeError(f"ic_cascade: {name} must be {want}, got "
-                            f"{x.dtype}")
-        if x.device != table.device:
-            raise ValueError(f"ic_cascade: {name} is on {x.device}, the "
-                             f"table on {table.device}")
+            raise TypeError(f"{name}: {label} must be {want}, got {x.dtype}")
+        if x.device != seed_words.device:
+            raise ValueError(f"{name}: {label} is on {x.device}, the seed "
+                             f"words on {seed_words.device}")
         if not x.is_contiguous():
-            raise ValueError(f"ic_cascade: {name} must be contiguous")
+            raise ValueError(f"{name}: {label} must be contiguous")
+    if key.shape != (2,):
+        raise ValueError(f"{name}: key must be (2,), got {tuple(key.shape)}")
+    if int(num_cols) < 1:
+        raise ValueError(f"{name}: num_cols must be >= 1, got {num_cols}")
+    W = -(-int(num_cols) // 32)
+    if seed_words.ndim != 2 or seed_words.shape[0] < 1 or \
+            seed_words.shape[1] != W:
+        raise ValueError(f"{name}: seed_words must be (n, W) with W = {W} "
+                         f"for {num_cols} columns, got "
+                         f"{tuple(seed_words.shape)}")
+    if not 0 <= int(thr) <= _TWO32:
+        raise ValueError(f"{name}: thr must lie in [0, 2^32], got {thr}")
+    if int(max_iters) < 0:
+        raise ValueError(f"{name}: max_iters must be >= 0, got {max_iters}")
+    check_runs(num_cols, runs)
+
+
+def _check(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
+           num_cols, runs=None):
+    """Raises on what neither version takes."""
+    check_packed("ic_cascade", dict(table=table, ov_ptr=ov_ptr,
+                                    ov_src=ov_src),
+                 seed_words, key, thr, max_iters, num_cols, runs)
     if table.ndim != 2 or min(table.shape) < 1:
         raise ValueError(f"ic_cascade: table must be (n, cap) with n, cap "
                          f">= 1, got {tuple(table.shape)}")
@@ -180,33 +222,78 @@ def _check(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
         raise ValueError(f"ic_cascade: ov_ptr must be ({n + 1},) and ov_src "
                          f"1-d, got {tuple(ov_ptr.shape)} and "
                          f"{tuple(ov_src.shape)}")
-    if key.shape != (2,):
-        raise ValueError(f"ic_cascade: key must be (2,), got "
-                         f"{tuple(key.shape)}")
-    if int(num_cols) < 1:
-        raise ValueError(f"ic_cascade: num_cols must be >= 1, got {num_cols}")
-    W = -(-int(num_cols) // 32)
-    if seed_words.shape != (n, W):
-        raise ValueError(f"ic_cascade: seed_words must be (n, W) = ({n}, "
-                         f"{W}) for {num_cols} columns, got "
-                         f"{tuple(seed_words.shape)}")
-    if not 0 <= int(thr) <= _TWO32:
-        raise ValueError(f"ic_cascade: thr must lie in [0, 2^32], got {thr}")
-    if int(max_iters) < 0:
-        raise ValueError(f"ic_cascade: max_iters must be >= 0, got "
-                         f"{max_iters}")
+    if seed_words.shape[0] != n:
+        raise ValueError(f"ic_cascade: seed_words must be (n, W) with n = "
+                         f"{n} table rows, got {tuple(seed_words.shape)}")
+
+
+def cascade_triples(src, dst, slot, seed_words, key, thr, max_iters,
+                    num_cols, runs, chunk, stats=None):
+    """The plain cascade over (receiver, slot, source) triples: (active
+    (n, W) int32, counts (B,) int32, steps (1,) int32).
+
+    Triple e is (dst[e], slot[e], src[e]), or slot e itself where ``slot``
+    is None. Each step gathers the frontier words of the sources,
+    ``chunk`` triples at a time, keeps the bits whose column is not yet
+    active at the receiver, draws those coins (column b as run b mod
+    ``runs``) and ORs the fired ones into ``hit``: the coins that can
+    change the result, each a function of (step, receiver, slot, run)
+    alone, so the chunking changes nothing.
+    A dict ``stats`` receives 'coins', the number of coins drawn, and
+    'attempted', the number of triples whose source was in the frontier
+    (in some column) at some step: those whose receiver must be read.
+    """
+    n, W = seed_words.shape
+    dev = seed_words.device
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    active = seed_words.clone()
+    frontier = seed_words
+    steps = coins = 0
+    tried = None if stats is None else torch.zeros(
+        src.shape[0], dtype=torch.bool, device=dev)
+    for t in range(int(max_iters)):
+        hit = torch.zeros(n * W * 32, dtype=torch.bool, device=dev)
+        for e0 in range(0, src.shape[0], chunk):
+            s, d = src[e0:e0 + chunk].long(), dst[e0:e0 + chunk].long()
+            fs = frontier[s]
+            if tried is not None:
+                tried[e0:e0 + chunk] |= (fs != 0).any(dim=1)
+            g = fs & ~active[d]  # attempts that can change hit
+            e, w = torch.nonzero(g, as_tuple=True)
+            bits = (g[e, w][:, None] >> shifts) & 1
+            k, bit = torch.nonzero(bits, as_tuple=True)
+            e, b = e[k], w[k] * 32 + bit
+            v = d[e]
+            j = e0 + e if slot is None else slot[e0 + e]
+            fire = coin_fires(t, v, j, b % runs, key, thr)
+            coins += fire.shape[0]
+            hit[v[fire] * (W * 32) + b[fire]] = True
+        # eight bits to a byte, four little-endian bytes to a word
+        byte = (hit.view(-1, 8).to(torch.uint8) * _BYTE_BITS.to(dev)).sum(
+            dim=1, dtype=torch.uint8)
+        newly = byte.view(torch.int32).view(n, W) & ~active
+        active |= newly
+        frontier = newly
+        steps += 1
+        if not bool(newly.any()):  # one host sync per step
+            break
+    if stats is not None:
+        stats["coins"] = coins
+        stats["attempted"] = int(tried.sum())
+    counts = unpack_columns(active, int(num_cols)).sum(dim=0,
+                                                       dtype=torch.int32)
+    return active, counts, torch.tensor([steps], dtype=torch.int32,
+                                        device=dev)
 
 
 def ic_cascade_reference(table, ov_ptr, ov_src, seed_words, key, thr,
-                         max_iters, num_cols, stats=None):
+                         max_iters, num_cols, runs=None, stats=None):
     """Plain PyTorch cascade: (active (n, W) int32, counts (B,) int32,
     steps (1,) int32), as the kernel gives them.
 
     Every table slot and overflow in-edge is one (receiver v, slot j,
-    source u) triple (j = cap + o for overflow in-edge o). Each step
-    gathers the frontier words of the sources, keeps the bits whose
-    column is not yet active at v, draws those coins and ORs the fired
-    ones into ``hit``. A dict ``stats`` receives 'coins', the number of
+    source u) triple (j = cap + o for overflow in-edge o), run by
+    ``cascade_triples``. A dict ``stats`` receives 'coins', the number of
     coins drawn.
     """
     n, cap = table.shape
@@ -219,36 +306,9 @@ def ic_cascade_reference(table, ov_ptr, ov_src, seed_words, key, thr,
     slot = torch.cat([torch.arange(cap, device=dev).repeat(n),
                       cap + torch.arange(O, device=dev)])
     src = torch.cat([table.reshape(-1).long(), ov_src.long()])
-    shifts = torch.arange(32, dtype=torch.int32, device=dev)
-    chunk = max(1, _REF_CHUNK_WORDS // W)
-    active = seed_words.clone()
-    frontier = seed_words
-    steps = coins = 0
-    for t in range(int(max_iters)):
-        hit = torch.zeros(n * W * 32, dtype=torch.bool, device=dev)
-        for e0 in range(0, src.shape[0], chunk):
-            s, d = src[e0:e0 + chunk], dst[e0:e0 + chunk]
-            g = frontier[s] & ~active[d]  # attempts that can change hit
-            e, w = torch.nonzero(g, as_tuple=True)
-            bits = (g[e, w][:, None] >> shifts) & 1
-            k, bit = torch.nonzero(bits, as_tuple=True)
-            e, b = e[k], w[k] * 32 + bit
-            v = d[e]
-            fire = coin_fires(t, v, slot[e0 + e], b, key, thr)
-            coins += fire.shape[0]
-            hit[v[fire] * (W * 32) + b[fire]] = True
-        newly = pack_columns(hit.view(n, W * 32)) & ~active
-        active |= newly
-        frontier = newly
-        steps += 1
-        if not bool(newly.any()):  # one host sync per step
-            break
-    if stats is not None:
-        stats["coins"] = coins
-    counts = unpack_columns(active, int(num_cols)).sum(dim=0,
-                                                       dtype=torch.int32)
-    return active, counts, torch.tensor([steps], dtype=torch.int32,
-                                        device=dev)
+    return cascade_triples(src, dst, slot, seed_words, key, thr, max_iters,
+                           num_cols, check_runs(num_cols, runs),
+                           max(1, REF_CHUNK_WORDS // W), stats)
 
 
 def _kernel_fn():
@@ -257,25 +317,25 @@ def _kernel_fn():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     return fn
 
 
-def cascade_grid(device, items):
-    """Blocks of one cascade launch for ``items`` (vertex, word) pairs:
-    the card's resident blocks (the cooperative launch's limit), or fewer
-    where the pairs need fewer."""
-    per_sm = kernel_blocks_per_sm("ic_cascade",
-                                  "graphem_ic_cascade_blocks_per_sm", device,
-                                  THREADS)
+def cascade_grid(device, items, lib="ic_cascade"):
+    """Blocks of one launch of the cascade kernel ``lib`` for ``items``
+    work items (its threads' first stride): the card's resident blocks
+    (the cooperative launch's limit), or fewer where the items need
+    fewer."""
+    per_sm = kernel_blocks_per_sm(lib, f"graphem_{lib}_blocks_per_sm",
+                                  device, THREADS)
     sm_count = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(sm_count * per_sm, -(-items // THREADS)))
 
 
 def ic_cascade_cuda(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
-                    num_cols):
+                    num_cols, runs=None):
     """Launch the cascade kernel; same outputs as ic_cascade_reference."""
     if not table.is_cuda:
         raise ValueError("ic_cascade_cuda takes CUDA tensors")
@@ -294,28 +354,32 @@ def ic_cascade_cuda(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
         rc = fn(table.data_ptr(), ov_ptr.data_ptr(), ov_src.data_ptr(),
                 seed_words.data_ptr(), active.data_ptr(),
                 frontier.data_ptr(), key.data_ptr(), ctl.data_ptr(), n, cap,
-                W, int(num_cols), int(thr), int(max_iters), nb, stream)
+                W, int(num_cols), check_runs(num_cols, runs), int(thr),
+                int(max_iters), nb, stream)
     if rc != 0:
         raise RuntimeError(f"ic_cascade kernel launch failed: CUDA error "
                            f"{rc}")
     return (active, ctl[CTL_WORDS:],
-            ctl[_STEPS_WORD:_STEPS_WORD + 1])
+            ctl[STEPS_WORD:STEPS_WORD + 1])
 
 
 def ic_cascade(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
-               num_cols):
+               num_cols, runs=None):
     """One cascade from the packed seed words: (active (n, W) int32,
     counts (num_cols,) int32, steps (1,) int32), on the tensors' device.
+    Column b draws the coins of run b mod ``runs`` (None: num_cols, every
+    column its own).
 
     The kernel for CUDA tensors (one launch, no host sync), the plain
     version for CPU tensors.
     """
-    _check(table, ov_ptr, ov_src, seed_words, key, thr, max_iters, num_cols)
+    _check(table, ov_ptr, ov_src, seed_words, key, thr, max_iters, num_cols,
+           runs)
     if table.is_cuda:
         return ic_cascade_cuda(table, ov_ptr, ov_src, seed_words, key, thr,
-                               max_iters, num_cols)
+                               max_iters, num_cols, runs)
     return ic_cascade_reference(table, ov_ptr, ov_src, seed_words, key, thr,
-                                max_iters, num_cols)
+                                max_iters, num_cols, runs)
 
 
 ic_cascade.launches = 0

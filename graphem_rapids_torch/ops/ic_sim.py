@@ -18,9 +18,16 @@ Two frontier updates, as in the JAX package:
   counted by (step, vertex, slot, column), so the card and the CPU give the
   same counts from the same key;
 - scatter (``_ic_run``, the fallback for graphs whose table would exceed
-  TABLE_BUDGET_SLOTS): per-edge attempts folded with a segment max, a
-  Python loop with one host sync per cascade step and coins from
-  ``torch.rand``.
+  TABLE_BUDGET_SLOTS): every directed edge ORs its fired attempts into
+  the receiver's hit words. The whole cascade is one call of
+  ``ops/ic_scatter.py``: on a card one launch of ``csrc/ic_scatter.cu``
+  over the (2E,) int32 edge list (``directed_edges``), with the same
+  packed state, the same stop rule and the same Philox coins (the
+  directed edge index as the slot); on the CPU its plain version.
+
+A greedy chunk's cascade passes ``runs``, its runs per candidate: column b
+draws the coins of run b mod runs, so run r of every candidate (and of
+the base group) sees the same coins.
 
 The coins differ from jax.random's, so the two packages agree in
 distribution, not run by run.
@@ -36,6 +43,7 @@ from .ic_cascade import (
     draw_key,
     ic_cascade,
 )
+from .ic_scatter import ic_scatter
 
 # Beyond this many table slots the gather formulation's memory stops paying
 # for itself; the scatter path takes over (the JAX package's bound).
@@ -52,32 +60,37 @@ def _generator(key, device):
     return gen
 
 
-def _ic_run(src, dst, seed_mask, p, generator, n, num_sims, max_iters):
-    """Scatter-formulation batched IC cascade; state (num_sims, n) bool.
+def _directed_np(edges):
+    """(src, dst) (2E,) int32 arrays of the undirected edge list: both
+    directions, ``src = [e0; e1]`` and ``dst = [e1; e0]`` (the JAX
+    package's order)."""
+    edges = np.asarray(edges, np.int64).reshape(-1, 2)
+    src = np.concatenate([edges[:, 0], edges[:, 1]]).astype(np.int32)
+    dst = np.concatenate([edges[:, 1], edges[:, 0]]).astype(np.int32)
+    return src, dst
 
-    src, dst : (2E,) int64 directed edge endpoints (both directions).
-    seed_mask : (n,) bool, or (num_sims, n) bool with one seed set per row.
-    Returns (num_sims,) int64 final activated counts.
+
+def directed_edges(edges, device):
+    """``_directed_np``'s (src, dst) as int32 tensors on ``device``,
+    uploaded once."""
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _directed_np(edges))
+
+
+def _ic_run(src, dst, words, p, generator, num_cols, max_iters, runs=None):
+    """Scatter-formulation batched IC cascade: one ``ic_scatter`` call.
+
+    src, dst : (2E,) int32 directed edges (``directed_edges``).
+    words : (n, W) int32 packed seed words of ``num_cols`` columns, one
+    seed set per column; column b draws the coins of run b mod ``runs``
+    (None: every column its own). One key is drawn from ``generator``.
+    Returns (num_cols,) int32 final activated counts, on the words'
+    device.
     """
-    if seed_mask.ndim == 1:
-        active = seed_mask.expand(num_sims, n).clone()
-    else:
-        active = seed_mask.clone()
-    frontier = active.clone()
-    dst_rows = dst.expand(num_sims, -1)
-    it = 0
-    while it < max_iters and bool(frontier.any()):  # one sync per step
-        coin = torch.rand((num_sims, src.shape[0]), generator=generator,
-                          device=active.device) < p
-        attempt = (frontier[:, src] & coin).to(torch.int32)
-        hit = torch.zeros((num_sims, n), dtype=torch.int32,
-                          device=active.device)
-        hit = hit.scatter_reduce(1, dst_rows, attempt, reduce="amax")
-        newly = (hit > 0) & ~active
-        active |= newly
-        frontier = newly
-        it += 1
-    return active.sum(dim=1)
+    _, counts, _ = ic_scatter(src, dst, words, draw_key(generator),
+                              coin_threshold(p), int(max_iters),
+                              int(num_cols), runs)
+    return counts
 
 
 def cascade_plan_arrays(edges, n):
@@ -87,11 +100,9 @@ def cascade_plan_arrays(edges, n):
     v in the frontier implies v active), 'ov_dst'/'ov_src' (O,) int32 sorted
     by dst (the above-cap hub in-edges) and 'ov_ptr' (n + 1,) int32, the
     row starts of that list."""
-    edges = np.asarray(edges, np.int64).reshape(-1, 2)
-    src2 = np.concatenate([edges[:, 0], edges[:, 1]]).astype(np.int32)
-    dst2 = np.concatenate([edges[:, 1], edges[:, 0]]).astype(np.int32)
+    src2, dst2 = _directed_np(edges)
     deg_in = np.bincount(dst2, minlength=n)
-    cap = max(1, _optimal_table_cap(deg_in, n)) if len(edges) else 1
+    cap = max(1, _optimal_table_cap(deg_in, n)) if len(dst2) else 1
     if n * cap > TABLE_BUDGET_SLOTS:
         return None
     order = np.argsort(dst2, kind="stable")
@@ -129,18 +140,20 @@ def seed_words(seed_mask, num_sims):
     return torch.where(seed_mask[:, None], full, 0)
 
 
-def _ic_run_table(plan, words, p, generator, num_cols, max_iters):
+def _ic_run_table(plan, words, p, generator, num_cols, max_iters,
+                  runs=None):
     """Gather-formulation batched IC cascade: one ``ic_cascade`` call.
 
     words : (n, W) int32 packed seed words of ``num_cols`` columns, one
     seed set per column (a greedy candidate sweep folds C candidates x s
-    runs into one batch). One key is drawn from ``generator``.
+    runs into one batch); column b draws the coins of run b mod ``runs``
+    (None: every column its own). One key is drawn from ``generator``.
     Returns (num_cols,) int32 final activated counts, on the plan's
     device.
     """
     _, counts, _ = ic_cascade(plan["table"], plan["ov_ptr"], plan["ov_src"],
                               words, draw_key(generator), coin_threshold(p),
-                              int(max_iters), int(num_cols))
+                              int(max_iters), int(num_cols), runs)
     return counts
 
 
@@ -165,18 +178,16 @@ def independent_cascade(edges, n, seeds, p=0.1, num_sims=64, max_iters=200,
     seed_np[np.asarray(list(seeds), np.int64)] = True
     seed_mask = torch.as_tensor(seed_np, device=dev)
     gen = _generator(key, dev)
+    words = seed_words(seed_mask, int(num_sims))
     if plan is None:
         plan = build_cascade_plan(edges, n, dev)
     if plan is not None:
-        counts = _ic_run_table(plan, seed_words(seed_mask, int(num_sims)),
-                               float(p), gen, int(num_sims), int(max_iters))
-        return counts.cpu().numpy(), max_iters
-    src = torch.as_tensor(np.concatenate([edges[:, 0], edges[:, 1]]),
-                          device=dev)
-    dst = torch.as_tensor(np.concatenate([edges[:, 1], edges[:, 0]]),
-                          device=dev)
-    counts = _ic_run(src, dst, seed_mask, float(p), gen, int(n),
-                     int(num_sims), int(max_iters))
+        counts = _ic_run_table(plan, words, float(p), gen, int(num_sims),
+                               int(max_iters))
+    else:
+        src, dst = directed_edges(edges, dev)
+        counts = _ic_run(src, dst, words, float(p), gen, int(num_sims),
+                         int(max_iters))
     return counts.cpu().numpy(), max_iters
 
 

@@ -48,9 +48,10 @@ def _np_coins(t, v, j, b, key, thr):
     return r < np.uint64(thr)
 
 
-def _np_cascade(arrays, seed, key, thr, max_iters):
+def _np_cascade(arrays, seed, key, thr, max_iters, runs=None):
     """Independent numpy cascade on (n, B) bool state: every slot and
-    overflow in-edge whose source is in the frontier draws its coin."""
+    overflow in-edge whose source is in the frontier draws its coin,
+    column b as run b mod ``runs`` (None: every column its own)."""
     table, ov_ptr, ov_src = arrays["table"], arrays["ov_ptr"], arrays["ov_src"]
     n, cap = table.shape
     dst = np.concatenate([np.repeat(np.arange(n), cap),
@@ -61,8 +62,9 @@ def _np_cascade(arrays, seed, key, thr, max_iters):
     active, frontier, steps = seed.copy(), seed.copy(), 0
     for t in range(max_iters):
         e, b = np.nonzero(frontier[src])
+        r = b if runs is None else b % runs
         fire = _np_coins(t, dst[e].astype(np.uint64), slot[e].astype(
-            np.uint64), b.astype(np.uint64), key, thr)
+            np.uint64), r.astype(np.uint64), key, thr)
         hit = np.zeros_like(active)
         hit[dst[e][fire], b[fire]] = True
         newly = hit & ~active
@@ -113,12 +115,12 @@ def _seeds(n, B, seed=1):
     return mask
 
 
-def _run(arrays, seed_mask, key, thr, max_iters, device="cpu"):
+def _run(arrays, seed_mask, key, thr, max_iters, device="cpu", runs=None):
     plan = tic.upload_plan(arrays, device)
     words = icc.pack_columns(torch.as_tensor(seed_mask, device=device))
     k = torch.as_tensor(np.asarray(key, np.int64), device=device)
     return icc.ic_cascade(plan["table"], plan["ov_ptr"], plan["ov_src"],
-                          words, k, thr, max_iters, seed_mask.shape[1])
+                          words, k, thr, max_iters, seed_mask.shape[1], runs)
 
 
 @pytest.mark.fast
@@ -190,6 +192,32 @@ def test_plain_matches_numpy_cascade(kind, B, p, max_iters):
     if max_iters == 3:
         assert want_steps == 3
     assert (counts.numpy() >= 3).all()
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("B,runs", [(100, 30), (96, 32), (64, 1), (70, 7),
+                                    (40, 40)])
+def test_runs_share_coins(B, runs):
+    """Column b draws the coins of run b mod runs: the plain version
+    equals the numpy cascade that draws so, runs = B equals the default,
+    and columns runs apart that hold the same seeds give the same run."""
+    arrays, n = _plan("hubs")
+    seed = _seeds(n, runs)[:, np.arange(B) % runs]  # groups of equal seeds
+    key = (0x2468ACE0, 0x13579BDF)
+    thr = icc.coin_threshold(0.3)
+    want, want_steps = _np_cascade(arrays, seed, key, thr, 200, runs)
+    active, counts, steps = _run(arrays, seed, key, thr, 200, runs=runs)
+    assert torch.equal(icc.unpack_columns(active, B), torch.as_tensor(want))
+    assert int(steps) == want_steps
+    c = counts.numpy()
+    np.testing.assert_array_equal(c, c[np.arange(B) % runs])
+    if runs == B:
+        for g, w in zip(_run(arrays, seed, key, thr, 200), (active, counts,
+                                                           steps)):
+            assert torch.equal(g, w)
+    else:  # independent coins give the groups different runs
+        free = _run(arrays, seed, key, thr, 200)[1].numpy()
+        assert (free != free[np.arange(B) % runs]).any()
 
 
 @pytest.mark.fast
@@ -286,6 +314,10 @@ def test_wrapper_rejects_bad_inputs():
         icc.ic_cascade(*bad(5, 2**32 + 1))
     with pytest.raises(ValueError):
         icc.ic_cascade(*bad(3, words.t().contiguous().t()))
+    with pytest.raises(ValueError, match="runs"):
+        icc.ic_cascade(*good, 0)
+    with pytest.raises(ValueError, match="runs"):
+        icc.ic_cascade(*good, 41)
     with pytest.raises(ValueError):
         icc.ic_cascade_cuda(*good)  # CPU tensors never reach the kernel
 
@@ -299,16 +331,19 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["hubs", "regular"])
-@pytest.mark.parametrize("B", [1, 33, 64, 2048])
+@pytest.mark.parametrize("B,runs", [(1, None), (33, None), (64, None),
+                                    (2048, None), (2048, 32), (100, 30),
+                                    (33, 1)])
 @pytest.mark.parametrize("p,max_iters", [(0.0, 200), (0.3, 200), (0.6, 3),
                                          (1.0, 200), (0.3, 0)])
-def test_kernel_matches_plain(cuda_device, kind, B, p, max_iters):
+def test_kernel_matches_plain(cuda_device, kind, B, runs, p, max_iters):
     arrays, n = _plan(kind)
     seed = _seeds(n, B)
     key = (0xDEADBEEF, 0x01234567)
     thr = icc.coin_threshold(p)
     launches = icc.ic_cascade.launches
-    got = _run(arrays, seed, key, thr, max_iters, device=cuda_device)
+    got = _run(arrays, seed, key, thr, max_iters, device=cuda_device,
+               runs=runs)
     torch.cuda.synchronize()
     assert icc.ic_cascade.launches == launches + 1
     plan = tic.upload_plan(arrays, cuda_device)
@@ -316,6 +351,6 @@ def test_kernel_matches_plain(cuda_device, kind, B, p, max_iters):
         plan["table"], plan["ov_ptr"], plan["ov_src"],
         icc.pack_columns(torch.as_tensor(seed, device=cuda_device)),
         torch.as_tensor(np.asarray(key, np.int64), device=cuda_device),
-        thr, max_iters, B)
+        thr, max_iters, B, runs)
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -223,10 +223,14 @@ def test_default_device_needs_cuda(monkeypatch):
 
 @pytest.mark.fast
 def test_greedy_chunk_gains_match_jax():
-    """One gather-path greedy chunk: the port's gains equal the mean of
-    the same cascade's per-column counts (seed words packed directly
-    against the dense (n, C*s) mask, one key), and lie within 4 standard
-    errors of JAX's _marginal_chunk_table on the same candidates."""
+    """One gather-path greedy chunk: the port's marginal gains equal the
+    same cascade's per-column counts (seed words packed directly against
+    the dense (n, (C + 1) * s) mask, the base-only group last, one key,
+    run r of every group on the same coins): each candidate's mean less
+    the base group's. Without the base group the candidates' columns are
+    the same runs, and their means (the spreads) lie within 4 standard
+    errors of JAX's _marginal_chunk_table, which returns spreads, on the
+    same candidates."""
     jax = pytest.importorskip("jax")
     jinf = pytest.importorskip("graphem_rapids_tpu.influence")
     jic = pytest.importorskip("graphem_rapids_tpu.ops.ic_sim")
@@ -234,30 +238,137 @@ def test_greedy_chunk_gains_match_jax():
     edges, n = _lt_edges(adj), adj.shape[0]
     cands = np.array([0, 1, 2, 3, 4, 90, 150, 0], np.int64)  # 0 twice
     s, p, iters = 512, 0.2, 50
+    C = len(cands)
     base = np.zeros(n, bool)
     base[3] = True
     plan = tic.build_cascade_plan(edges, n, "cpu")
     base_t = torch.as_tensor(base)
-    got = tinf._marginal_chunk_table(
-        plan, base_t, p, torch.Generator().manual_seed(4),
-        torch.as_tensor(cands), s, iters).numpy()
-    dense = np.repeat(base[:, None], len(cands), axis=1)
-    dense[cands, np.arange(len(cands))] = True
+
+    def chunk(base_runs):
+        return tinf._marginal_chunk_table(
+            plan, base_t, p, torch.Generator().manual_seed(4),
+            torch.as_tensor(cands), s, iters, base_runs).numpy()
+
+    got, spreads = chunk(s), chunk(0)
+    dense = np.repeat(base[:, None], C + 1, axis=1)
+    dense[cands, np.arange(C)] = True
     dense = np.repeat(dense, s, axis=1)
     counts = tic._ic_run_table(plan, pack_columns(torch.as_tensor(dense)), p,
                                torch.Generator().manual_seed(4),
-                               len(cands) * s, iters).numpy()
-    runs = counts.reshape(len(cands), s).astype(float)
-    assert got[3] == -np.inf
+                               (C + 1) * s, iters, s).numpy()
+    runs = counts.reshape(C + 1, s).astype(float)
+    assert got[3] == spreads[3] == -np.inf
     keep = cands != 3
-    np.testing.assert_array_equal(got[keep],
-                                  runs.mean(axis=1).astype(np.float32)[keep])
+    # the means are multiples of 1/512 below 2^17: exact in float32
+    np.testing.assert_array_equal(
+        got[keep], (runs[:C].mean(axis=1) - runs[C].mean()).astype(
+            np.float32)[keep])
+    np.testing.assert_array_equal(
+        spreads[keep], runs[:C].mean(axis=1).astype(np.float32)[keep])
+    # common coins: run r of a candidate holds at least base run r's
+    # cascade, except where the candidate's own cascade came first
+    assert (runs[:C][keep] >= runs[C]).mean() > 0.9
+    np.testing.assert_array_equal(runs[0], runs[7])  # candidate 0 twice
     jplan = jic.build_cascade_plan(edges.astype(np.int32), n)
     want = np.asarray(jinf._marginal_chunk_table(
         jplan["table"], jplan["ov_dst"], jplan["ov_src"], base, p,
         jax.random.PRNGKey(4), cands.astype(np.int32), s, iters))
     assert want[3] == -np.inf
-    se = np.sqrt(2 * runs.var(axis=1, ddof=1) / s)
-    assert (np.abs(got - want)[keep] < 4 * se[keep] + 1e-9).all(), (
-        got, want, se)
-    assert got[0] == got[7] or abs(got[0] - got[7]) < 4 * se[0]
+    se = np.sqrt(2 * runs[:C].var(axis=1, ddof=1) / s)
+    assert (np.abs(spreads - want)[keep] < 4 * se[keep] + 1e-9).all(), (
+        spreads, want, se)
+
+
+def _two_stars():
+    """Vertex 0 with leaves 1..200, vertex 201 with leaves 202..251."""
+    e = [(0, j) for j in range(1, 201)] + [(201, j) for j in range(202, 252)]
+    return _adj(e, 252)
+
+
+def _forest(seed):
+    """Random trees of distinct sizes (three of 70-160 vertices, then 30
+    and 12), labels shuffled, plus isolated vertices: at p=1 the spread of
+    a seed set is the size of the trees it touches."""
+    rng = np.random.default_rng(seed)
+    sizes = list(rng.choice(np.arange(70, 161), 3, replace=False)) + [30, 12]
+    e, base = [], 0
+    for size in sizes:
+        e += [(base + int(rng.integers(0, i)), base + i)
+              for i in range(1, size)]
+        base += size
+    n = base + 20
+    perm = rng.permutation(n)
+    return _adj([tuple(sorted((int(perm[a]), int(perm[b])))) for a, b in e],
+                n)
+
+
+@pytest.mark.fast
+def test_two_stars_take_the_full_sweep_seeds(path):
+    """Greedy's CELF caches marginal gains (F1): after vertex 0, every
+    leaf of its star gains nothing, and the other star's centre wins, as
+    in the full sweep (the JAX package's CELF, which caches spreads,
+    picks leaf 1)."""
+    adj = _two_stars()
+    got, evals = grt.greedy_seed_selection(adj, 2, p=1.0, num_sims=4,
+                                           device="cpu")
+    assert got == [0, 201]
+    if path == "scatter":
+        assert evals == (252 + 251) * 4
+    else:
+        # the first sweep, then re-evaluations of 64 stale candidates and
+        # a base group of 4 runs each, until the top is fresh
+        assert evals > 252 * 4 and (evals - 252 * 4) % 4 == 0
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_greedy_takes_the_largest_components(path, seed):
+    """At p=1 greedy takes one vertex of each of the three largest trees,
+    the lowest id of each (ties go to the lowest id), as the full sweep
+    does: its largest tree holds more than one chunk of 64 candidates."""
+    adj = _forest(seed)
+    _, labels = connected_components(adj, directed=False)
+    sizes = np.bincount(labels)
+    want = [int(np.flatnonzero(labels == c).min())
+            for c in np.argsort(-sizes, kind="stable")[:3]]
+    assert sizes.max() > 64
+    got, _ = grt.greedy_seed_selection(adj, 3, p=1.0, num_sims=4,
+                                       device="cpu")
+    assert got == want
+    full, _ = tinf._greedy_scatter(_lt_edges(adj), adj.shape[0], 3, 1.0, 200,
+                                   4, torch.Generator().manual_seed(0))
+    assert full == want
+
+
+@pytest.mark.fast
+def test_greedy_scatter_matches_jax_greedy_scatter():
+    """The port's full sweep picks JAX's full-sweep seeds on the hub graph
+    (gains several standard errors apart at p=0.2, 32 runs)."""
+    jax = pytest.importorskip("jax")
+    jinf = pytest.importorskip("graphem_rapids_tpu.influence")
+    adj = _hub_graph()
+    edges, n = _lt_edges(adj), adj.shape[0]
+    want, want_evals = jinf._greedy_scatter(edges.astype(np.int32), n, 3, 0.2,
+                                            50, 32, jax.random.PRNGKey(0))
+    got, evals = tinf._greedy_scatter(edges, n, 3, 0.2, 50, 32,
+                                      torch.Generator().manual_seed(0))
+    assert got == want == [0, 1, 2] and evals == want_evals
+
+
+@pytest.mark.fast
+def test_scatter_chunk_follows_the_state_words(monkeypatch):
+    """The full sweep's chunk: JAX's 1024 candidates at most, n at most,
+    and fewer where the (n, W) state of C * num_sims columns would pass
+    _SCATTER_STATE_WORDS; any chunking picks the same seeds at p=1."""
+    assert tinf._scatter_chunk(200, 32) == 200
+    assert tinf._scatter_chunk(5000, 32) == tinf.GREEDY_CAND_CHUNK
+    # 2^27 words // 12M vertices = 11 words: 352 columns
+    assert tinf._scatter_chunk(12_000_000, 32) == 11
+    assert tinf._scatter_chunk(12_000_000, 64) == 5
+    assert tinf._scatter_chunk(10**9, 64) == 1
+    monkeypatch.setattr(tic, "TABLE_BUDGET_SLOTS", 0)
+    monkeypatch.setattr(tinf, "_SCATTER_STATE_WORDS", 252)
+    assert tinf._scatter_chunk(252, 4) == 8
+    got, evals = grt.greedy_seed_selection(_two_stars(), 2, p=1.0,
+                                           num_sims=4, device="cpu")
+    assert got == [0, 201] and evals == (252 + 251) * 4
