@@ -77,8 +77,8 @@ Phases:
    vertices at p=0.1 over 64 runs, and the exact gates p=0 (exactly the
    seeds) and p=1 (exactly the seeds' connected components); the first
    estimate's ic_seconds split into the edge extraction, the cascade
-   plan's host build, its upload and the cascade; the four cascades must
-   be four ic_cascade launches;
+   plan's host build, its upload, its push lists' build and the cascade;
+   the four cascades must be four ic_cascade launches;
 8. greedy: greedy_seed_selection on a small hub graph, the same seeds on
    the card and on the CPU, on the gather path and on the scatter path's
    full sweep (TABLE_BUDGET_SLOTS patched to 0: three ic_scatter launches,
@@ -87,7 +87,10 @@ Phases:
    take [0, 201], the full sweep's seeds (CELF caches marginal gains);
    then on a 2,000-vertex graph (four random Hamiltonian cycles, k=5,
    p=0.1, 32 runs) through the cascade kernel and through its plain
-   version on the card: the same seeds and evaluations, both timed;
+   version on the card: the same seeds and evaluations, both timed; then
+   on a 20,000-vertex graph of the same kind (k=3), timed, with its
+   ic_cascade launches and one build of the plan's push lists (the
+   scatter path's greedy, too, builds its lists once);
 9. card against CPU: a small graph, 5 injected-sample steps with
    knn_strategy='binfold', 'pallas' and 'approx', and 'binfold' with
    ref_order='slot', on the card and on the CPU, allclose;
@@ -221,14 +224,20 @@ Phases:
     overflow in-edges) with 10 random seeds in 64 columns at p=0.1, and at
     the hub graph's first greedy chunk (64 candidates x 32 runs, B=2048,
     W=64, run r of every candidate on the same coins, as greedy runs it)
-    at p=0.2; each also at p=0 and p=1. Active words, counts and
-    steps must be bit-equal, one launch per cascade, p=0 exactly the seeds
-    and p=1 exactly the seeds' components in every column. At each
-    shape's own p: the steps, the coins drawn, the kernel's time per call
-    and back to back, the plain version's, the bound (each input read and
-    each output written once, against the coins' Philox instructions) and
-    the per-step traffic model of the kernel's source note
-    (step_bytes_ms);
+    at p=0.2; each also at p=0 and p=1, and each in every step mode of
+    the kernel (push, dense and auto). Active words, counts and steps must
+    be bit-equal in every mode, one launch per cascade, the dense steps
+    those the plain version's pairs per step give (none forced push, all
+    forced dense), p=0 exactly the seeds and p=1 exactly the seeds'
+    components in every column. At each shape's own p: the steps, the
+    pairs behind the frontier per step, the coins drawn, the kernel's time
+    per call (auto) and back to back (each mode), the plain version's,
+    the push lists' build time and bytes, the bound (each input read and
+    each output written once as far as the run needs it: the seed words,
+    the push lists of the vertices ever in the frontier, the active words;
+    against the coins' Philox instructions),
+    the frontier-driven traffic model (frontier_model_ms) and the
+    per-step model of a dense step every step (step_bytes_ms);
 23. the scatter-form IC, run after phase 22, on ring + 36M chords at
     12,000,000 vertices (bench.py's scale family; its cascade table, cap
     13, would pass the 2^27-slot budget), built once and freed after the
@@ -236,18 +245,20 @@ Phases:
     ic_scatter_reference on the same packed seed words and key, on the
     directed edge lists of the 1M graph and the 12M graph (10 random seeds
     in 64 columns, p=0.1) and of phase 22's hub greedy chunk (B=2048,
-    W=64, p=0.2), each also at p=0 and p=1: active words, counts and steps
-    bit-equal, one launch per cascade, p=0 exactly the seeds and p=1
+    W=64, p=0.2), each also at p=0 and p=1 and in every step mode (push,
+    dense, auto): active words, counts and steps bit-equal, one launch per
+    cascade, the dense steps as in phase 22, p=0 exactly the seeds and p=1
     exactly their components (all 12M vertices in every column); at each
-    shape's p the steps, the coins drawn, the kernel's time per call and
-    back to back, the plain version's (its compared run), the bound (src
-    read once, dst only for the edges behind a frontier bit, the seed and
-    active words once) and the per-step traffic model. Then the main
-    path: grt.estimated_influence on the 12M graph at p=0.1 over 64 runs
-    (its wall seconds, split into the edge extraction, the plan decision,
-    the directed lists' build and upload and the cascade, and its peak
-    memory), at p=0 and at p=1 (exact): three
-    ic_scatter launches and no ic_cascade launch. The phase adds about 45 s
+    shape's p the steps, the pairs per step, the coins drawn, the kernel's
+    time per call (auto) and back to back (each mode), the plain
+    version's (its compared run), the push lists' build time and bytes,
+    the bound (as in phase 22), the frontier-driven traffic
+    model and the per-step model of a dense step every step. Then the
+    main path: grt.estimated_influence on the 12M graph at p=0.1 over 64
+    runs (its wall seconds, split into the edge extraction, the plan
+    decision, the directed lists' build and upload, their push lists'
+    build and the cascade, and its peak memory), at p=0 and at p=1
+    (exact): three ic_scatter launches and no ic_cascade launch. The phase adds about 45 s
     to the run on an H100: the graph's build about 9 s, the plain version
     at 12M about 17 s over its three calls (p=0.1 about 10 s, timed once
     in the compared run), each 12M estimate about 6 s of host work.
@@ -286,6 +297,10 @@ IC_KEY = (0x2545F491, 0x6C078965)
 # a Philox4x32-10 draw is about 78 integer instructions and serves up to
 # 4 coins
 PHILOX_INSTR = 78
+# the IC kernels' step modes, each held against the plain version
+IC_MODES = ("push", "dense", "auto")
+# phase 8's timed greedy: a union of four random Hamiltonian cycles
+GREEDY_LARGE_N = 20_000
 # phase 23's graph: the smallest of bench.py's scale family (ring + 3n
 # chords) whose cascade table passes the 2^27-slot budget (cap 13)
 SCATTER_N = 12_000_000
@@ -802,8 +817,10 @@ def phase_greedy(grt):
     both take [0, 201] (greedy's CELF caches marginal gains); on a
     2,000-vertex graph greedy through the cascade kernel gives exactly
     the seeds of greedy through its plain version on the card (the same
-    coins). Returns the launches of ic_cascade and of ic_scatter in the
-    greedy runs through them."""
+    coins); greedy on a 20,000-vertex graph (k=3, p=0.1, 32 runs), timed,
+    on one build of the plan's push lists. The scatter-path greedy, too,
+    builds its lists once. Returns the launches of ic_cascade and of
+    ic_scatter in the greedy runs through them."""
     from graphem_rapids_torch.ops import ic_cascade as icc
     from graphem_rapids_torch.ops import ic_scatter as ics
     from graphem_rapids_torch.ops import ic_sim as tic
@@ -827,25 +844,29 @@ def phase_greedy(grt):
     try:
         icc.ic_cascade.launches = 0
         ics.ic_scatter.launches = 0
+        builds = push_list_builds()
         t0 = time.perf_counter()
         card, evals = grt.greedy_seed_selection(adj, 3, **kw)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         scatter_launches = ics.ic_scatter.launches
         gather = icc.ic_cascade.launches
+        builds = push_list_builds() - builds
         cpu, cpu_evals = grt.greedy_seed_selection(adj, 3, device="cpu",
                                                    **kw)
     finally:
         tic.TABLE_BUDGET_SLOTS = budget
     emit("greedy", graph="hub_scatter_path", n=adj.shape[0],
          seeds_card=card, seeds_cpu=cpu, evaluations=evals, seconds_card=dt,
-         ic_scatter_launches=scatter_launches, ic_cascade_launches=gather)
+         ic_scatter_launches=scatter_launches, ic_cascade_launches=gather,
+         push_list_builds=builds)
     if (card, evals) != (cpu, cpu_evals) or gather != 0 or \
-            scatter_launches != 3:
+            scatter_launches != 3 or builds != 1:
         raise AssertionError(f"scatter-path greedy: card {card} ({evals}), "
                              f"cpu {cpu} ({cpu_evals}), {scatter_launches} "
                              f"ic_scatter and {gather} ic_cascade launches "
-                             "(one chunk a round)")
+                             f"(one chunk a round), {builds} push-list "
+                             "builds (one)")
 
     adj = two_stars_graph()
     kw2 = dict(p=1.0, iterations_count=200, num_sims=4, seed=0)
@@ -884,7 +905,35 @@ def phase_greedy(grt):
         raise AssertionError(f"greedy through the kernel {kern} ({evals}) "
                              f"and its plain version {plain} "
                              f"({plain_evals})")
-    return launches + kern_launches, scatter_launches
+
+    adj = regular_union_graph(GREEDY_LARGE_N)
+    n = adj.shape[0]
+    icc.ic_cascade.launches = 0
+    builds = push_list_builds()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seeds, evals = grt.greedy_seed_selection(adj, 3, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    large = icc.ic_cascade.launches
+    builds = push_list_builds() - builds
+    emit("greedy", graph=f"regular_union_{n}", n=n, k=3, p=0.1, num_sims=32,
+         seeds=seeds, evaluations=evals, seconds_card=dt,
+         ic_cascade_launches=large, push_list_builds=builds)
+    # the first round alone is ceil(n / 64) chunks of 64 candidates
+    if builds != 1 or large < -(-n // 64) or len(set(seeds)) != 3:
+        raise AssertionError(f"greedy on {n} vertices: seeds {seeds}, "
+                             f"{large} ic_cascade launches, {builds} "
+                             "push-list builds (one per plan)")
+    return launches + kern_launches + large, scatter_launches
+
+
+def push_list_builds():
+    """The push lists built so far: the gather plans' and the edge
+    lists'."""
+    from graphem_rapids_torch.ops import ic_cascade as icc
+
+    return icc.push_lists.builds
 
 
 def profile_steps(emb, label, untraced_ms_per_iter, iters=10):
@@ -1095,17 +1144,20 @@ def phase_host_prep(graphs):
 def ic_split():
     """Seconds of an IC estimate's stages inside: the edge extraction, the
     cascade plan's build on the host (past the table budget only the
-    decision), its upload (the scatter path: the directed edge lists'
-    build and upload) and the cascade of either path (each stage ends in a
-    synchronize)."""
+    decision), its upload (the scatter path: the directed edge lists' build and
+    upload), the push lists' build on the device and the cascade of either
+    path (each stage ends in a synchronize)."""
     from graphem_rapids_torch import influence as inf
     from graphem_rapids_torch.ops import ic_sim as tic
 
-    secs = dict(extract_s=0.0, plan_s=0.0, upload_s=0.0, cascade_s=0.0)
+    secs = dict(extract_s=0.0, plan_s=0.0, upload_s=0.0, push_s=0.0,
+                cascade_s=0.0)
     stages = [(inf, "_as_edges_and_n", "extract_s"),
               (tic, "cascade_plan_arrays", "plan_s"),
               (tic, "upload_plan", "upload_s"),
               (tic, "directed_edges", "upload_s"),
+              (tic, "table_push_lists", "push_s"),
+              (tic, "edge_push_lists", "push_s"),
               (tic, "_ic_run_table", "cascade_s"),
               (tic, "_ic_run", "cascade_s")]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in stages]
@@ -1137,9 +1189,9 @@ def plain_cascade():
     from graphem_rapids_torch.ops import ic_cascade as icc
     from graphem_rapids_torch.ops import ic_sim as tic
 
-    def plain(*args):
-        icc._check(*args)
-        return icc.ic_cascade_reference(*args)
+    def plain(*args, lists=None, mode="auto", stats=None):
+        icc._check(*args, lists, mode)
+        return icc.ic_cascade_reference(*args, stats=stats)
 
     saved = tic.ic_cascade
     tic.ic_cascade = plain
@@ -1188,13 +1240,84 @@ def exact_counts(adj, mask):
             1.0: (hit.to(torch.int64) * sizes).sum(dim=1)}
 
 
+def ic_modes(fn, args, lists, want, limit, step_pairs):
+    """Phases 22 and 23: the cascade wrapper ``fn`` on ``args`` and the push
+    ``lists`` in each mode of IC_MODES against the plain version's result
+    ``want``: per mode bit_equal (active words, counts, steps), the
+    launches, the steps and dense steps, and the dense steps the plain
+    version's pairs per step (``step_pairs``) give at the auto ``limit``.
+    Returns the rows and the auto run's result."""
+    rows, auto = {}, None
+    for mode in IC_MODES:
+        stats = {}
+        before = fn.launches
+        got = fn(*args, lists, mode=mode, stats=stats)
+        torch.cuda.synchronize()
+        expect = {"push": 0, "dense": len(step_pairs),
+                  "auto": sum(d > limit for d in step_pairs)}[mode]
+        rows[mode] = dict(
+            bit_equal=all(torch.equal(g, w) for g, w in zip(got, want)),
+            launches=fn.launches - before, steps=int(got[2]),
+            dense_steps=int(stats["dense_steps"]),
+            dense_steps_expected=expect)
+        if mode == "auto":
+            auto = got
+    return rows, auto
+
+
+def ic_modes_ok(rows):
+    """Every mode bit-equal, one launch, its dense steps as expected."""
+    return all(r["bit_equal"] and r["launches"] == 1
+               and r["dense_steps"] == r["dense_steps_expected"]
+               for r in rows.values())
+
+
+def frontier_model_bytes(step_pairs, limit, dense_step_bytes, n, W):
+    """The frontier-driven kernels' traffic model of one cascade: the n * W
+    state initialized (seed read, active and the three hit buffers
+    written, the stamps) and counted once; a push step of D pairs D * (8
+    bytes of push list and a 32-byte sector each of the receiver's active
+    and two hit words per 8 words); a dense step (more pairs than
+    ``limit``) the dense pass's ``dense_step_bytes``."""
+    per_pair = 8 + 96 * -(-W // 8)
+    total = 24 * n * W + 4 * n
+    for d in step_pairs:
+        total += dense_step_bytes if d > limit else d * per_pair
+    return total
+
+
+def push_io_bytes(stats, n, W, B):
+    """The bytes a cascade must move on its push lists: the seed words and
+    the key read, the row starts (two int32) of each vertex that was in
+    the frontier (``stats['sources']``) and the receiver and slot (two
+    int32) of each pair behind the frontier, once (``stats['pushed']``),
+    read; the active words, counts and steps written. The graph's other
+    pairs (the rest of the table or edge list) need not be read."""
+    return (4 * (2 * n * W + B + 1) + 16 + 8 * stats["sources"]
+            + 8 * stats["pushed"])
+
+
+def push_list_build(build):
+    """(lists, ms, bytes) of one push-list build by ``build()`` on the
+    card (a second build: the first was the plan's or a first call's)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lists = build()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return lists, ms, 4 * sum(int(x.numel()) for x in lists)
+
+
 def phase_ic_kernel(fp32_instr_per_s, adj100k, adj1m, device="cuda"):
     """Phase 22: the IC cascade kernel against its plain version on the
     card, bit for bit (active words, counts, steps), at each of ic_cases'
-    shapes for its p, p=0 and p=1; one launch per cascade; p=0 leaves
-    exactly the seeds and p=1 exactly their components. At each shape's p
-    the kernel's time per call and back to back, the plain version's, and
-    the bounds. Returns the 1M shape's numbers for the kernel summary."""
+    shapes for its p, p=0 and p=1, in each mode (push, dense, auto); one
+    launch per cascade; the dense steps as the plain version's pairs per
+    step give them; p=0 leaves exactly the seeds and p=1 exactly their
+    components. At each shape's p the kernel's time per call (auto) and
+    back to back (each mode), the plain version's, the push lists' build,
+    and the bounds. Returns the 1M shape's numbers for the kernel
+    summary."""
     from graphem_rapids_torch.influence import _as_edges_and_n
     from graphem_rapids_torch.ops import ic_cascade as icc
     from graphem_rapids_torch.ops import ic_sim as tic
@@ -1206,40 +1329,49 @@ def phase_ic_kernel(fp32_instr_per_s, adj100k, adj1m, device="cuda"):
         edges, n = _as_edges_and_n(adj)
         plan = tic.build_cascade_plan(edges, n, device)
         table, ptr, src = plan["table"], plan["ov_ptr"], plan["ov_src"]
+        lists, build_ms, list_bytes = push_list_build(
+            lambda: icc.table_push_lists(table, src, plan["ov_dst"]))
         cap, O, B = table.shape[1], src.shape[0], mask.shape[1]
         W = -(-B // 32)
+        limit = icc.table_dense_limit("auto", n, cap, O, W)
         words = icc.pack_columns(mask)
         exact = exact_counts(adj, mask)
         for pp in (p, 0.0, 1.0):
             thr = icc.coin_threshold(pp)
             args = (table, ptr, src, words, key, thr, 200, B, runs)
-            before = icc.ic_cascade.launches
-            got = icc.ic_cascade(*args)
-            torch.cuda.synchronize()
-            launches = icc.ic_cascade.launches - before
             stats = {}
             want = icc.ic_cascade_reference(*args, stats=stats)
-            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            modes, got = ic_modes(icc.ic_cascade, args, lists, want, limit,
+                                  stats["step_pairs"])
             err = int((got[1] - want[1]).abs().max())
             out["max_abs_err"] = max(out["max_abs_err"], err)
             steps = int(got[2])
             row = dict(graph=label, n=n, cap=cap, W=W, B=B, O=O, p=pp,
-                       runs=runs, steps=steps, launches_per_cascade=launches,
-                       bit_equal=equal, coins=stats["coins"],
+                       runs=runs, steps=steps, modes=modes,
+                       dense_limit=limit, coins=stats["coins"],
+                       pushed=stats["pushed"], sources=stats["sources"],
+                       step_pairs=stats["step_pairs"],
                        mean_count=float(got[1].double().mean()))
             if pp in exact:
                 row["exact"] = bool(torch.equal(got[1].to(torch.int64),
                                                 exact[pp].to(torch.int64)))
             if pp == p:
-                ms = cuda_ms(lambda: icc.ic_cascade(*args))
-                b2b = back_to_back_ms(lambda: icc.ic_cascade(*args))
+                ms = cuda_ms(lambda: icc.ic_cascade(*args, lists))
+                b2b = {m: back_to_back_ms(
+                    lambda m=m: icc.ic_cascade(*args, lists, mode=m))
+                    for m in IC_MODES}
                 plain_ms = cuda_ms(lambda: icc.ic_cascade_reference(*args),
                                    reps=3, warmup=1)
-                # each input read once and each output written once
-                io_bytes = 4 * (n * cap + n + 1 + O + 2 * n * W + B + 1) + 16
-                # per step: the table, one 32-byte sector per gathered
-                # frontier word group, the overflow list and row starts,
-                # and the active and frontier words read and written
+                # each input read once and each output written once, as
+                # far as this run's data needs them: the seed words, the
+                # key, the push lists' row starts of the vertices that
+                # were ever in the frontier and their pairs (8 bytes
+                # each), the active words, counts and steps
+                io_bytes = push_io_bytes(stats, n, W, B)
+                # per dense step: the table, one 32-byte sector per
+                # gathered frontier word group, the overflow list and row
+                # starts, and the active and frontier words read and
+                # written (the table walk of every step)
                 step_bytes = (4 * (n * cap + O + n + 1)
                               + 32 * (n * cap + O) * -(-W // 8)
                               + 16 * n * W)
@@ -1247,22 +1379,31 @@ def phase_ic_kernel(fp32_instr_per_s, adj100k, adj1m, device="cuda"):
                 bytes_ms = io_bytes / H100_HBM_BYTES_PER_S * 1e3
                 ops_ms = ops / fp32_instr_per_s * 1e3
                 bound = max(bytes_ms, ops_ms)
-                row.update(kernel_ms=ms, back_to_back_ms=b2b,
+                model = frontier_model_bytes(stats["step_pairs"], limit,
+                                             step_bytes, n, W)
+                row.update(kernel_ms=ms, back_to_back_ms=b2b["auto"],
+                           back_to_back_ms_by_mode=b2b,
                            plain_ms=plain_ms, io_bytes=io_bytes,
                            ops=ops, bound_ms=bound,
                            bound_by="bytes" if bytes_ms >= ops_ms
                            else "operations",
+                           push_lists_build_ms=build_ms,
+                           push_lists_bytes=list_bytes,
+                           frontier_model_bytes=model,
+                           frontier_model_ms=model
+                           / H100_HBM_BYTES_PER_S * 1e3,
                            step_bytes=step_bytes,
                            step_bytes_ms=steps * step_bytes
                            / H100_HBM_BYTES_PER_S * 1e3,
-                           share_of_bound_back_to_back=bound / b2b)
+                           share_of_bound_back_to_back=bound / b2b["auto"])
                 if adj is adj1m:
-                    out.update(ms=ms, back_to_back_ms=b2b, plain_ms=plain_ms,
-                               bound_ms=bound, bound_by=row["bound_by"])
+                    out.update(ms=ms, back_to_back_ms=b2b["auto"],
+                               plain_ms=plain_ms, bound_ms=bound,
+                               bound_by=row["bound_by"])
             emit("ic_kernel", **row)
-            if not equal or launches != 1 or not row.get("exact", True):
+            if not ic_modes_ok(modes) or not row.get("exact", True):
                 raise AssertionError(f"ic_kernel {label} p={pp}: {row}")
-        del plan, table, ptr, src, words
+        del plan, table, ptr, src, words, lists
     torch.cuda.empty_cache()
     return out
 
@@ -1272,11 +1413,13 @@ def phase_ic_scatter(fp32_instr_per_s, adj1m, adj12m, device="cuda"):
     version on the card, bit for bit (active words, counts, steps), on the
     directed edge lists of the 1M and 12M graphs (10 random seeds in 64
     columns, p=0.1) and of the hub graph's first greedy chunk (B=2048,
-    W=64, p=0.2), each also at p=0 and p=1; one launch per cascade; p=0
-    leaves exactly the seeds and p=1 exactly their components. At each
-    shape's p the kernel's time per call and back to back, the plain
-    version's in the compared run, and the bounds. Returns the 12M shape's
-    numbers for the kernel summary."""
+    W=64, p=0.2), each also at p=0 and p=1, in each mode (push, dense,
+    auto); one launch per cascade; the dense steps as the plain version's
+    pairs per step give them; p=0 leaves exactly the seeds and p=1 exactly
+    their components. At each shape's p the kernel's time per call (auto)
+    and back to back (each mode), the plain version's in the compared run,
+    the push lists' build, and the bounds. Returns the 12M shape's numbers
+    for the kernel summary."""
     from graphem_rapids_torch.influence import _as_edges_and_n
     from graphem_rapids_torch.ops import ic_cascade as icc
     from graphem_rapids_torch.ops import ic_scatter as ics
@@ -1289,69 +1432,79 @@ def phase_ic_scatter(fp32_instr_per_s, adj1m, adj12m, device="cuda"):
         edges, n = _as_edges_and_n(adj)
         src, dst = tic.directed_edges(edges, device)
         del edges
+        ics.edge_push_lists(src, dst, n)  # the build of a first call
+        lists, build_ms, list_bytes = push_list_build(
+            lambda: ics.edge_push_lists(src, dst, n))
         E2, B = src.shape[0], mask.shape[1]
         W = -(-B // 32)
+        limit = icc.dense_limit("auto", E2, ics.DENSE_BETA, W)
         words = icc.pack_columns(mask)
         exact = exact_counts(adj, mask)
         for pp in (p, 0.0, 1.0):
             args = (src, dst, words, key, icc.coin_threshold(pp), 200, B,
                     runs)
-            before = ics.ic_scatter.launches
-            got = ics.ic_scatter(*args)
-            torch.cuda.synchronize()
-            launches = ics.ic_scatter.launches - before
             stats = {}
             t0 = time.perf_counter()
             want = ics.ic_scatter_reference(*args, stats=stats)
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t0
-            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            modes, got = ic_modes(ics.ic_scatter, args, lists, want, limit,
+                                  stats["step_pairs"])
             err = int((got[1] - want[1]).abs().max())
             out["max_abs_err"] = max(out["max_abs_err"], err)
             steps = int(got[2])
             row = dict(graph=label, n=n, E2=E2, W=W, B=B, p=pp, runs=runs,
-                       steps=steps,
-                       launches_per_cascade=launches, bit_equal=equal,
+                       steps=steps, modes=modes, dense_limit=limit,
                        coins=stats["coins"], attempted=stats["attempted"],
-                       plain_s=plain_s,
+                       pushed=stats["pushed"], sources=stats["sources"],
+                       step_pairs=stats["step_pairs"], plain_s=plain_s,
                        mean_count=float(got[1].double().mean()))
             if pp in exact:
                 row["exact"] = bool(torch.equal(got[1].to(torch.int64),
                                                 exact[pp].to(torch.int64)))
             if pp == p:
-                ms = cuda_ms(lambda: ics.ic_scatter(*args))
-                b2b = back_to_back_ms(lambda: ics.ic_scatter(*args))
+                ms = cuda_ms(lambda: ics.ic_scatter(*args, lists))
+                b2b = {m: back_to_back_ms(
+                    lambda m=m: ics.ic_scatter(*args, lists, mode=m))
+                    for m in IC_MODES}
                 plain_ms = plain_s * 1e3  # the compared run's
-                # each input read once (src; dst only for the edges whose
-                # source was in the frontier, as the coin's counter holds
-                # dst[e]; the seed words; the key) and each output written
-                # once (active words, counts, steps)
-                io_bytes = (4 * (E2 + stats["attempted"] + 2 * n * W + B + 1)
-                            + 16)
-                # per step: src, one 32-byte sector per edge's frontier row
-                # of W words, and pass 2's hit and frontier words
+                # each input read once and each output written once, as
+                # far as this run's data needs them (as in phase 22)
+                io_bytes = push_io_bytes(stats, n, W, B)
+                # per dense step: src, one 32-byte sector per edge's
+                # frontier row of W words, and the hit and frontier words
+                # of a pass over every vertex
                 step_bytes = 4 * E2 + 32 * E2 * -(-W // 8) + 8 * n * W
                 ops = stats["coins"] * PHILOX_INSTR / 4
                 bytes_ms = io_bytes / H100_HBM_BYTES_PER_S * 1e3
                 ops_ms = ops / fp32_instr_per_s * 1e3
                 bound = max(bytes_ms, ops_ms)
-                row.update(kernel_ms=ms, back_to_back_ms=b2b,
+                model = frontier_model_bytes(stats["step_pairs"], limit,
+                                             step_bytes, n, W)
+                row.update(kernel_ms=ms, back_to_back_ms=b2b["auto"],
+                           back_to_back_ms_by_mode=b2b,
                            plain_ms=plain_ms, io_bytes=io_bytes, ops=ops,
                            bound_ms=bound,
                            bound_by="bytes" if bytes_ms >= ops_ms
                            else "operations",
+                           push_lists_build_ms=build_ms,
+                           push_lists_bytes=list_bytes,
+                           frontier_model_bytes=model,
+                           frontier_model_ms=model
+                           / H100_HBM_BYTES_PER_S * 1e3,
                            step_bytes=step_bytes,
                            step_bytes_ms=steps * step_bytes
                            / H100_HBM_BYTES_PER_S * 1e3,
-                           share_of_bound_back_to_back=bound / b2b)
+                           share_of_bound_back_to_back=bound / b2b["auto"])
                 if adj is adj12m:
-                    out.update(ms=ms, back_to_back_ms=b2b, plain_ms=plain_ms,
-                               bound_ms=bound, bound_by=row["bound_by"])
+                    out.update(ms=ms, back_to_back_ms=b2b["auto"],
+                               plain_ms=plain_ms, bound_ms=bound,
+                               bound_by=row["bound_by"])
             emit("ic_scatter", **row)
-            if not equal or launches != 1 or not row.get("exact", True):
+            if not ic_modes_ok(modes) or not row.get("exact", True):
                 raise AssertionError(f"ic_scatter {label} p={pp}: {row}")
             del got, want
-        del src, dst, words, mask
+        del src, dst, words, mask, lists
         torch.cuda.empty_cache()
     return out
 

@@ -20,43 +20,40 @@
 // are groups whose run r shares its coins), thr = floor(p * 2^32) in
 // [0, 2^32].
 //
-// Design. The grid is the card's resident block count (a cooperative
-// launch, so every block is resident and a grid-wide barrier is safe).
-// Each step strides over the (vertex, word) pairs; a thread reads one
-// frontier word per in-neighbour, keeps the bits whose column is neither
-// active nor already hit at v, and draws Philox only for those (one draw
-// serves the four columns of a nibble), then writes newly and active. A
-// block sums popcount(newly) and adds it to a 64-bit total for the step's
-// parity; after the grid barrier every block reads that total, and the
-// cascade stops where it did not grow. Stopping needs nothing reset: a
-// parity's total is next added to two steps later, after the barrier that
-// every block passes only once it has read it. The frontier is double
-// buffered by step parity (step 0 reads the seed words); state written
-// during the launch is read with ld.global.cg, so no stale L1 line is
-// seen across the barrier. At the end each block counts the active bits
-// of its columns in shared memory (one ballot per bit over 32 vertices of
-// a word) and adds one integer per column to the (B,) counts: integer
-// sums, deterministic. The coins, the barrier, the stop test and the count
-// are ic_common.cuh's, shared with the scatter form (ic_scatter.cu).
+// Design. The step is ic_common.cuh's frontier-driven step, shared with the
+// scatter form (ic_scatter.cu): a step whose queue has few out-pairs pushes
+// from the frontier's vertices along their push lists (the table slots and
+// overflow in-edges regrouped by source), and only the vertices hit and
+// the queue's are touched besides; one grid barrier a step. This file
+// brings the dense pass, taken where the queue's pairs pass dense_limit
+// (the wrapper's DENSE_BETA times G times the n * cap + O slots): a
+// warp-strided walk of the (vertex, word) items over the table, reading
+// the frontier buffer whole. Each item loads kBatch table ids and their
+// frontier words before it draws any coin, so the loads of a batch are in
+// flight together, and the early exit (every column active or hit) is
+// tested once a batch. An overflow row of at least kCoopMin in-edges is
+// walked by the whole warp, 32 in-edges at a time, its fired bits
+// OR-reduced to the owner (__reduce_or_sync); short rows the owner walks
+// alone.
 //
-// What bounds it on an H100: the bytes of each step. At the 1M-vertex
-// plan (ring + 3M chords, cap 13, 35,188 overflow in-edges) with B = 64
-// (W = 2) one step reads the table (n * cap * 4 = 52 MB), one 32-byte
-// sector per gathered frontier word (13M * 32 = 416 MB) and the active and
-// frontier words (about 32 MB): about 0.5 GB, 0.15 ms at 3.35 TB/s, so
-// about 5 ms for 33 steps. At 100K vertices the whole state fits in the
-// 50 MB L2. Reading each input once and writing each output once is far
-// less (72 MB at 1M, 0.02 ms); the gap is the per-step gather, which only a
-// cascade that keeps its state on chip would avoid. On an NVIDIA H100 80GB
-// HBM3 at 700 W a 22-step cascade at 1M took 2.26 ms back to back, below
-// the per-step model: the 8 MB of frontier words stay in L2 (PERF.md).
+// What bounds it on an H100: not bytes. What a cascade must move is the
+// seed words read and the active words written (2 n W words) and, of the
+// push lists, only the pairs behind the frontier and their sources' row
+// starts: at the 1M-vertex plan (ring + 3M chords, cap 13, 35,188
+// overflow in-edges) with B = 64 (W = 2) and p = 0.1 about 16 MB, 0.005
+// ms at 3.35 TB/s; the rest of the table need not be read. A push step is
+// bound by latency: a chain of about a dozen dependent L2 round trips
+// (the offsets' search, the pair, the frontier word, the receiver's
+// words, the stamp, the append) and one grid barrier of 264 arrivals;
+// what is left is the n W state's initialization and count, once a
+// cascade. A dense step reads the table (52 MB at 1M) and a sector per
+// gathered frontier word, as the kernel once did every step; "auto" takes
+// it only where a step's frontier has many pairs behind it. PERF.md has
+// the times (scripts/torch_ic_times.py).
 //
-// Load balance: one thread per (vertex, word) walks the vertex's cap slots
-// and its overflow range. The plan's overflow is at most 10 in-edges a
-// vertex at 1M; a star's hub walks its whole overflow list (77 in-edges
-// past cap 3 for the 80-leaf hub of the greedy test graph) while the other
-// threads of its warp wait, once per step and word, until every column of
-// the word is active or hit.
+// Load balance: a push step hands out the queue's pairs by their offsets
+// (a hub's row spreads over as many warps as its pairs fill); a dense step
+// gives a long overflow row to the whole warp.
 
 #include <cstdint>
 
@@ -66,68 +63,122 @@
 
 namespace {
 
-using ic::Ctl;
+using ic::kFull;
 using ic::kThreads;
 
-__global__ void __launch_bounds__(kThreads)
-ic_cascade_kernel(const int32_t* __restrict__ table,
-                  const int32_t* __restrict__ ov_ptr,
-                  const int32_t* __restrict__ ov_src,
-                  const uint32_t* __restrict__ seed, uint32_t* active,
-                  uint32_t* frontier, const long long* __restrict__ key,
-                  Ctl* ctl, int* counts, int n, int cap, int W, int B,
-                  int runs, unsigned long long thr, int max_iters) {
-  const long long items = static_cast<long long>(n) * W;
-  const long long first =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const uint32_t k0 = static_cast<uint32_t>(key[0]);
-  const uint32_t k1 = static_cast<uint32_t>(key[1]);
-  unsigned long long epoch = 0;
-  unsigned long long seen[2] = {0ull, 0ull};  // thread 0's last totals
+constexpr int kBatch = 8;     // table slots loaded before their coins
+constexpr int kCoopMin = 16;  // overflow rows this long take the warp
 
-  int t = 0;
-  if (max_iters <= 0) {
-    for (long long i = first; i < items; i += stride) active[i] = seed[i];
-    ic::grid_barrier(&ctl->barrier, epoch);
-  }
-  while (t < max_iters) {
-    const uint32_t* cur = t == 0 ? seed : frontier + (t & 1) * items;
-    uint32_t* nxt = frontier + ((t + 1) & 1) * items;
-    unsigned long long mine = 0;
-    for (long long i = first; i < items; i += stride) {
-      const int v = static_cast<int>(i / W);
-      const int w = static_cast<int>(i - static_cast<long long>(v) * W);
-      const uint32_t a = t == 0 ? seed[i] : active[i];
-      uint32_t hit = 0;
-      const int32_t* row = table + static_cast<long long>(v) * cap;
-      for (int j = 0; j < cap && ~(a | hit); ++j) {
-        const long long u = __ldg(row + j);
-        const uint32_t f = __ldcg(cur + u * W + w) & ~(a | hit);
-        if (f) hit |= ic::fired(f, t, v, j, w, runs, k0, k1, thr);
+struct GatherDense {
+  const int32_t* table;
+  const int32_t* ov_ptr;
+  const int32_t* ov_src;
+  int cap;
+
+  __device__ __forceinline__ void operator()(const ic::Cascade& c, int t,
+                                             uint32_t k0, uint32_t k1) const {
+    const int lane = threadIdx.x & 31;
+    const long long items = static_cast<long long>(c.n) * c.W;
+    const uint32_t last = (c.B & 31) ? (1u << (c.B & 31)) - 1u : kFull;
+    const uint32_t tt = static_cast<uint32_t>(t);
+    const uint32_t runs = static_cast<uint32_t>(c.runs);
+    const uint32_t* frontier = c.hit((t + 2) % 3);
+    uint32_t* hit_t = c.hit(t % 3);
+    for (long long base = ic::global_warp() * 32; base < items;
+         base += ic::grid_warps() * 32) {
+      const long long i = base + lane;
+      int v = 0, w = 0, o0 = 0, o1 = 0;
+      uint32_t need = 0u;  // columns neither active nor hit yet
+      uint32_t hit = 0u;
+      if (i < items) {
+        v = static_cast<int>(i / c.W);
+        w = static_cast<int>(i - static_cast<long long>(v) * c.W);
+        need = ~(__ldcg(c.active + i) | __ldcg(frontier + i)) &
+               (w == c.W - 1 ? last : kFull);
       }
-      const int o1 = __ldg(ov_ptr + v + 1);
-      for (int o = __ldg(ov_ptr + v); o < o1 && ~(a | hit); ++o) {
-        const long long u = __ldg(ov_src + o);
-        const uint32_t f = __ldcg(cur + u * W + w) & ~(a | hit);
-        if (f) hit |= ic::fired(f, t, v, cap + o, w, runs, k0, k1, thr);
+      if (need) {
+        const int32_t* row = table + static_cast<long long>(v) * cap;
+        for (int j0 = 0; j0 < cap && (need & ~hit); j0 += kBatch) {
+          uint32_t f[kBatch];
+#pragma unroll
+          for (int k = 0; k < kBatch; ++k) {
+            f[k] = j0 + k < cap
+                       ? __ldcg(frontier +
+                                static_cast<long long>(__ldg(row + j0 + k)) *
+                                    c.W + w)
+                       : 0u;
+          }
+          uint32_t pending = 0u;
+#pragma unroll
+          for (int k = 0; k < kBatch; ++k) pending |= (f[k] & need) ? 1u << k : 0u;
+          while (pending) {
+            const int k = __ffs(pending) - 1;
+            pending &= pending - 1u;
+            uint32_t fk = 0u;
+#pragma unroll
+            for (int kk = 0; kk < kBatch; ++kk) fk = kk == k ? f[kk] : fk;
+            const uint32_t cand = fk & need & ~hit;
+            if (cand) {
+              hit |= ic::fired(cand, tt, v, static_cast<uint32_t>(j0 + k), w,
+                               runs, k0, k1, c.thr);
+            }
+          }
+        }
+        o0 = __ldg(ov_ptr + v);
+        o1 = __ldg(ov_ptr + v + 1);
       }
-      active[i] = a | hit;  // hit holds only columns not active at v
-      nxt[i] = hit;
-      mine += __popc(hit);
+      // long overflow rows: the warp walks each, 32 in-edges at a time
+      unsigned coop = __ballot_sync(kFull, (need & ~hit) && o1 - o0 >= kCoopMin);
+      while (coop) {
+        const int src_lane = __ffs(coop) - 1;
+        coop &= coop - 1u;
+        const int vl = __shfl_sync(kFull, v, src_lane);
+        const int wl = __shfl_sync(kFull, w, src_lane);
+        const uint32_t open = __shfl_sync(kFull, need & ~hit, src_lane);
+        const int a0 = __shfl_sync(kFull, o0, src_lane);
+        const int a1 = __shfl_sync(kFull, o1, src_lane);
+        uint32_t acc = 0u;
+        for (int o = a0 + lane; o < a1; o += 32) {
+          const long long u = __ldg(ov_src + o);
+          const uint32_t cand =
+              __ldcg(frontier + u * c.W + wl) & open & ~acc;
+          if (cand) {
+            acc |= ic::fired(cand, tt, vl, static_cast<uint32_t>(cap + o), wl,
+                             runs, k0, k1, c.thr);
+          }
+        }
+        acc = __reduce_or_sync(kFull, acc);
+        if (lane == src_lane) hit |= acc;
+      }
+      if (o1 - o0 < kCoopMin) {
+        for (int o = o0; o < o1 && (need & ~hit); ++o) {
+          const long long u = __ldg(ov_src + o);
+          const uint32_t cand = __ldcg(frontier + u * c.W + w) & need & ~hit;
+          if (cand) {
+            hit |= ic::fired(cand, tt, v, static_cast<uint32_t>(cap + o), w,
+                             runs, k0, k1, c.thr);
+          }
+        }
+      }
+      bool app = false;
+      if (hit) {
+        hit_t[i] = hit;  // this item's own word: no other writer this step
+        app = ic::touch(c.stamp(), v, t);
+      }
+      ic::append(c, t % 3, app, v);
     }
-    const bool go = ic::step_continues(ctl, t, mine, epoch, seen);
-    ++t;
-    if (!go) break;
   }
-  ic::count_columns(active, counts, n, W, B);
-  if (blockIdx.x == 0 && threadIdx.x == 0) ctl->steps = t;
+};
+
+__global__ void __launch_bounds__(kThreads, ic::kMinBlocks)
+ic_cascade_kernel(ic::Cascade c, GatherDense dense) {
+  ic::run(c, dense);
 }
 
 }  // namespace
 
 // Resident blocks per SM of the cascade kernel at `threads` threads a block
-// (which must be 256), or minus a CUDA error.
+// (which must be ic::kThreads), or minus a CUDA error.
 extern "C" int graphem_ic_cascade_blocks_per_sm(int threads) {
   if (threads != kThreads) return -static_cast<int>(cudaErrorInvalidValue);
   int n = 0;
@@ -138,26 +189,32 @@ extern "C" int graphem_ic_cascade_blocks_per_sm(int threads) {
 
 // Launches one cascade on `stream` as a cooperative kernel and returns a
 // CUDA error code (0 on success). table (n, cap), ov_ptr (n + 1,) and
-// ov_src (O,) are int32; seed, active and frontier are (n, W), (n, W) and
-// (2, n, W) 32-bit words, active and frontier uninitialized; key is (2,)
-// int64 on the device (two 32-bit Philox key words); ctl is CTL_WORDS + B
-// int32, zeroed by the caller: the control block, then the (B,) counts.
-// Column b draws the coins of run b mod runs. nb is the grid, at most the
-// resident block count. The wrapper checks the shapes and types.
+// ov_src (O,) are int32; out_ptr (n + 1,), out_recv and out_slot (P,) are
+// the plan's push lists (int32); seed and active are (n, W) 32-bit words
+// and hits (3, n, W), the last two uninitialized; lists is (7, n) int32
+// scratch; key is (2,) int64 on the device (two 32-bit Philox key words);
+// ctl is CTL_WORDS + B int32, zeroed by the caller: the control block,
+// then the (B,) counts. Column b draws the coins of run b mod runs. G is
+// min(32, 2^ceil(log2 W)); a step of more than dense_limit pairs behind
+// the frontier is dense. nb is the grid, at most the resident block count.
+// The wrapper checks the shapes and types.
 extern "C" int graphem_ic_cascade_launch(
     const int32_t* table, const int32_t* ov_ptr, const int32_t* ov_src,
-    const uint32_t* seed, uint32_t* active, uint32_t* frontier,
-    const long long* key, int* ctl_words, int n, int cap, int W, int B,
-    int runs, unsigned long long thr, int max_iters, int nb, void* stream) {
+    const int32_t* out_ptr, const int32_t* out_recv, const int32_t* out_slot,
+    const uint32_t* seed, uint32_t* active, uint32_t* hits, int* lists, const long long* key, int* ctl_words, int n, int cap, int W,
+    int B, int runs, int G, unsigned long long thr, int max_iters,
+    long long dense_limit, int nb, void* stream) {
   if (n < 1 || cap < 1 || W < 1 || B < 1 || B > 32 * W || runs < 1 ||
-      nb < 1 || max_iters < 0 || thr > (1ull << 32)) {
+      G < 1 || G > 32 || (G & (G - 1)) || nb < 1 || max_iters < 0 ||
+      thr > (1ull << 32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Ctl* ctl = reinterpret_cast<Ctl*>(ctl_words);
-  int* counts = ctl_words + sizeof(Ctl) / sizeof(int);
-  void* args[] = {&table, &ov_ptr, &ov_src, &seed,  &active,
-                  &frontier, &key, &ctl, &counts, &n,
-                  &cap, &W, &B, &runs, &thr, &max_iters};
+  ic::Cascade c{seed, active, hits, lists, out_ptr, out_recv,
+                out_slot, key, reinterpret_cast<ic::Ctl*>(ctl_words),
+                ctl_words + sizeof(ic::Ctl) / sizeof(int), n, W, B, runs, G,
+                max_iters, thr, dense_limit};
+  GatherDense dense{table, ov_ptr, ov_src, cap};
+  void* args[] = {&c, &dense};
   const cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(ic_cascade_kernel), dim3(nb),
       dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));

@@ -21,40 +21,39 @@
 // mod runs, the gather form's coin with the directed edge index as the
 // slot, so each coin is a pure function of (t, e, b mod runs) and the key.
 //
-// Design: edge-parallel, three passes over a grid of resident blocks (a
-// cooperative launch, so the grid barrier is safe).
-//   0. (vertex, word) pairs: active = frontier = seed, hit = 0; barrier.
-//   Each step t:
-//   1. a thread takes one directed edge e (consecutive threads, consecutive
-//      edges: src is read coalesced) and walks its W words: for a frontier
-//      word of src[e] that is not zero it reads dst[e] once, keeps the bits
-//      whose column is neither active nor (by a racy read) already hit at
-//      the receiver, draws Philox only for those, and ORs the fired bits
-//      into hit[dst[e]] with atomicOr. OR is order-free, so hit is the same
-//      whatever the order; the racy read only skips coins that could not
-//      change it (the number of coins drawn depends on timing, the result
-//      does not). Barrier.
-//   2. (vertex, word) pairs: newly = hit & ~active, active |= newly,
-//      frontier = newly, hit = 0 for the next step (the barrier after this
-//      pass keeps the clear from racing the next step's ORs); the block's
-//      popcount(newly) goes to the stop test (ic_common.cuh), whose barrier
-//      ends the step.
-// The coins, the barrier, the stop test and the final count are
-// ic_common.cuh's, shared with the gather form (ic_cascade.cu). 2E and
-// n * W each stay below 2^31 (the wrapper checks), so e and v fit the
-// 32-bit counter words.
+// Design. The step is ic_common.cuh's frontier-driven step, shared with the
+// gather form (ic_cascade.cu): a step whose queue has few out-pairs pushes
+// from the frontier's vertices along the push lists (the directed edges
+// sorted by source: receiver dst[e], slot e), and only the vertices hit
+// and the queue's are touched besides; one grid barrier a step. This file
+// brings the dense pass, taken where the queue's pairs pass dense_limit
+// (the wrapper's DENSE_BETA times G times 2E): the edge sweep, a thread
+// per directed edge (consecutive threads, consecutive edges: src is read
+// coalesced) walking its W words; for a frontier word of src[e] that is
+// not zero it reads dst[e], keeps the bits whose column is neither active
+// nor (by a racy read) already hit at the receiver, draws Philox only for
+// those and ORs the fired bits into the step's hit buffer with atomicOr.
+// 2E and n * W each stay below 2^31 (the wrapper checks), so e and v fit
+// the 32-bit counter words.
 //
-// What bounds it on an H100: the bytes of each step. At the smallest graph
-// of bench.py's scale family that takes this path (ring + 36M chords,
-// n = 12,000,000, 2E = 95,999,964) with B = 64 (W = 2), pass 1 reads src
-// (384 MB) and one 32-byte sector per edge's frontier row (the 96 MB of
-// frontier words do not stay in the 50 MB L2: at most 3.1 GB), pass 2 the
-// hit and frontier words (192 MB): 0.3-1.1 ms a step at 3.35 TB/s. dst and
-// active are read only behind a non-zero frontier word. Reading src once,
-// dst only behind a frontier bit (the coin's counter holds dst[e]) and
-// the seed words once, and writing the active words once, is about 576 MB
-// (0.17 ms); the gap is the per-step sweep over every edge, which a
-// frontier-driven sweep (only the frontier's out-edges) would cut.
+// What bounds it on an H100: latency. What a cascade must move is the seed
+// words read and the active words written (2 n W words) and, of the push
+// lists, only the pairs behind the frontier and their sources' row
+// starts: at the smallest graph of bench.py's scale family that takes
+// this path (ring + 36M chords, n = 12,000,000, 2E = 95,999,964) with B =
+// 64 (W = 2) and p = 0.1 about 192 MB, 0.057 ms at 3.35 TB/s (at p = 0.1
+// about 13,000 directed edges lie behind the frontier over the whole
+// cascade). A push step is a chain of dependent L2 round trips and one
+// grid barrier of 264 arrivals; what is left is the n W state's
+// initialization and count, once a cascade. A dense step reads src (384
+// MB) and a 32-byte sector of every edge's frontier row (the 96 MB of a
+// frontier buffer does not stay in the 50 MB L2): about 1.1 ms, what every
+// step cost before the push steps. PERF.md has the times
+// (scripts/torch_ic_times.py).
+//
+// Load balance: a push step hands out the queue's pairs by their offsets,
+// so a hub's row spreads over as many warps as its pairs fill; a dense step
+// gives every edge one thread.
 
 #include <cstdint>
 
@@ -64,82 +63,60 @@
 
 namespace {
 
-using ic::Ctl;
 using ic::kThreads;
 
-__global__ void __launch_bounds__(kThreads)
-ic_scatter_kernel(const int32_t* __restrict__ src,
-                  const int32_t* __restrict__ dst,
-                  const uint32_t* __restrict__ seed, uint32_t* active,
-                  uint32_t* frontier, uint32_t* hit,
-                  const long long* __restrict__ key, Ctl* ctl, int* counts,
-                  int n, long long E2, int W, int B, int runs,
-                  unsigned long long thr, int max_iters) {
-  const long long items = static_cast<long long>(n) * W;
-  const long long first =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const uint32_t k0 = static_cast<uint32_t>(key[0]);
-  const uint32_t k1 = static_cast<uint32_t>(key[1]);
-  unsigned long long epoch = 0;
-  unsigned long long seen[2] = {0ull, 0ull};  // thread 0's last totals
+struct ScatterDense {
+  const int32_t* src;
+  const int32_t* dst;
+  long long E2;
 
-  for (long long i = first; i < items; i += stride) {
-    const uint32_t s = seed[i];
-    active[i] = s;
-    frontier[i] = s;
-    hit[i] = 0u;
-  }
-  ic::grid_barrier(&ctl->barrier, epoch);
-
-  int t = 0;
-  while (t < max_iters) {
-    for (long long e = first; e < E2; e += stride) {
-      const long long u = __ldg(src + e);
-      const uint32_t* fu = frontier + u * W;
-      long long v = -1;
-      for (int w = 0; w < W; ++w) {
-        uint32_t f = __ldcg(fu + w);
-        if (!f) continue;
-        if (v < 0) v = __ldg(dst + e);
-        const long long vi = v * W + w;
-        f &= ~(__ldcg(active + vi) | __ldcg(hit + vi));
-        if (!f) continue;
-        const uint32_t fire =
-            ic::fired(f, static_cast<uint32_t>(t), static_cast<uint32_t>(v),
-                      static_cast<uint32_t>(e), static_cast<uint32_t>(w),
-                      static_cast<uint32_t>(runs), k0, k1, thr);
-        if (fire) atomicOr(hit + vi, fire);
+  __device__ __forceinline__ void operator()(const ic::Cascade& c, int t,
+                                             uint32_t k0, uint32_t k1) const {
+    const int lane = threadIdx.x & 31;
+    const uint32_t* frontier = c.hit((t + 2) % 3);
+    uint32_t* hit = c.hit(t % 3);
+    for (long long base = ic::global_warp() * 32; base < E2;
+         base += ic::grid_warps() * 32) {
+      const long long e = base + lane;
+      bool app = false;
+      int v = -1;
+      if (e < E2) {
+        const long long u = __ldg(src + e);
+        const uint32_t* fu = frontier + u * c.W;
+        bool any = false;
+        for (int w = 0; w < c.W; ++w) {
+          uint32_t f = __ldcg(fu + w);
+          if (!f) continue;
+          if (v < 0) v = __ldg(dst + e);
+          const long long vi = static_cast<long long>(v) * c.W + w;
+          f &= ~(__ldcg(c.active + vi) | __ldcg(frontier + vi) |
+                 __ldcg(hit + vi));
+          if (!f) continue;
+          const uint32_t fire =
+              ic::fired(f, static_cast<uint32_t>(t), static_cast<uint32_t>(v),
+                        static_cast<uint32_t>(e), static_cast<uint32_t>(w),
+                        static_cast<uint32_t>(c.runs), k0, k1, c.thr);
+          if (fire) {
+            atomicOr(hit + vi, fire);
+            any = true;
+          }
+        }
+        app = any && ic::touch(c.stamp(), v, t);
       }
+      ic::append(c, t % 3, app, v);
     }
-    ic::grid_barrier(&ctl->barrier, epoch);
-
-    unsigned long long mine = 0;
-    for (long long i = first; i < items; i += stride) {
-      const uint32_t h = __ldcg(hit + i);
-      if (h) {
-        const uint32_t a = __ldcg(active + i);
-        const uint32_t newly = h & ~a;
-        active[i] = a | newly;
-        frontier[i] = newly;
-        hit[i] = 0u;
-        mine += __popc(newly);
-      } else if (__ldcg(frontier + i)) {
-        frontier[i] = 0u;
-      }
-    }
-    const bool go = ic::step_continues(ctl, t, mine, epoch, seen);
-    ++t;
-    if (!go) break;
   }
-  ic::count_columns(active, counts, n, W, B);
-  if (blockIdx.x == 0 && threadIdx.x == 0) ctl->steps = t;
+};
+
+__global__ void __launch_bounds__(kThreads, ic::kMinBlocks)
+ic_scatter_kernel(ic::Cascade c, ScatterDense dense) {
+  ic::run(c, dense);
 }
 
 }  // namespace
 
 // Resident blocks per SM of the scatter kernel at `threads` threads a block
-// (which must be 256), or minus a CUDA error.
+// (which must be ic::kThreads), or minus a CUDA error.
 extern "C" int graphem_ic_scatter_blocks_per_sm(int threads) {
   if (threads != kThreads) return -static_cast<int>(cudaErrorInvalidValue);
   int n = 0;
@@ -150,27 +127,34 @@ extern "C" int graphem_ic_scatter_blocks_per_sm(int threads) {
 
 // Launches one cascade on `stream` as a cooperative kernel and returns a
 // CUDA error code (0 on success). src and dst are (E2,) int32 directed
-// edges with endpoints in [0, n); seed, active, frontier and hit are (n,
-// W) 32-bit words, the last three uninitialized; key is (2,) int64 on the
-// device (two 32-bit Philox key words); ctl is CTL_WORDS + B int32, zeroed
-// by the caller: the control block, then the (B,) counts. Column b draws
-// the coins of run b mod runs. nb is the grid, at most the resident block
-// count. The wrapper checks the shapes and types.
+// edges with endpoints in [0, n); out_ptr (n + 1,), out_recv and out_slot
+// (P,) are their push lists (int32); seed and active are (n, W) 32-bit
+// words and hits (3, n, W), the last two uninitialized; lists is (7, n)
+// int32 scratch; key is (2,) int64 on the device (two 32-bit Philox key words);
+// ctl is CTL_WORDS + B int32, zeroed by the caller: the control block,
+// then the (B,) counts. Column b draws the coins of run b mod runs. G is
+// min(32, 2^ceil(log2 W)); a step of more than dense_limit pairs behind
+// the frontier is dense. nb is the grid, at most the resident block count.
+// The wrapper checks the shapes and types.
 extern "C" int graphem_ic_scatter_launch(
-    const int32_t* src, const int32_t* dst, const uint32_t* seed,
-    uint32_t* active, uint32_t* frontier, uint32_t* hit,
+    const int32_t* src, const int32_t* dst, const int32_t* out_ptr,
+    const int32_t* out_recv, const int32_t* out_slot, const uint32_t* seed,
+    uint32_t* active, uint32_t* hits, int* lists,
     const long long* key, int* ctl_words, int n, long long E2, int W, int B,
-    int runs, unsigned long long thr, int max_iters, int nb, void* stream) {
+    int runs, int G, unsigned long long thr, int max_iters,
+    long long dense_limit, int nb, void* stream) {
   if (n < 1 || E2 < 0 || E2 >= (1ll << 31) || W < 1 || B < 1 ||
       B > 32 * W || static_cast<long long>(n) * W >= (1ll << 31) ||
-      runs < 1 || nb < 1 || max_iters < 0 || thr > (1ull << 32)) {
+      runs < 1 || G < 1 || G > 32 || (G & (G - 1)) || nb < 1 ||
+      max_iters < 0 || thr > (1ull << 32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Ctl* ctl = reinterpret_cast<Ctl*>(ctl_words);
-  int* counts = ctl_words + sizeof(Ctl) / sizeof(int);
-  void* args[] = {&src, &dst,    &seed, &active, &frontier, &hit,
-                  &key, &ctl,    &counts, &n,    &E2,       &W,
-                  &B,   &runs,   &thr,   &max_iters};
+  ic::Cascade c{seed, active, hits, lists, out_ptr, out_recv,
+                out_slot, key, reinterpret_cast<ic::Ctl*>(ctl_words),
+                ctl_words + sizeof(ic::Ctl) / sizeof(int), n, W, B, runs, G,
+                max_iters, thr, dense_limit};
+  ScatterDense dense{src, dst, E2};
+  void* args[] = {&c, &dense};
   const cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(ic_scatter_kernel), dim3(nb),
       dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));

@@ -19,6 +19,7 @@ import torch
 
 from .models.embedder import resolve_device
 from .ops.ic_cascade import column_mask_words, pack_columns_np
+from .ops.ic_scatter import edge_push_lists
 from .ops.ic_sim import (
     _generator,
     _ic_run,
@@ -26,12 +27,13 @@ from .ops.ic_sim import (
     build_cascade_plan,
     directed_edges,
     independent_cascade,
+    wants_push_lists,
 )
 
 # Most candidates of one scatter-path sweep chunk (the JAX package's bound).
 GREEDY_CAND_CHUNK = 1024
 # Bound on the (n, W) packed words of one scatter-path chunk's cascade
-# (each of the scatter kernel's four state arrays: 512 MB).
+# (each of the scatter kernel's five (n, W) state arrays: 512 MB).
 _SCATTER_STATE_WORDS = 1 << 27
 
 
@@ -141,9 +143,10 @@ def _chunk_gains(counts, base_mask, cand_ids, num_sims):
     return torch.where(base_mask[cand_ids], -torch.inf, gains)
 
 
-def _batched_marginal(src, dst, base_mask, p, generator, cand_ids, num_sims,
-                      max_iters):
-    """Spread of base_mask + each candidate, on the scatter simulator.
+def _batched_marginal(src, dst, lists, base_mask, p, generator, cand_ids,
+                      num_sims, max_iters):
+    """Spread of base_mask + each candidate, on the scatter simulator
+    (``lists``: the edges' push lists).
 
     The C candidates x num_sims runs are the columns of one (n, C * s)
     cascade (``_chunk_words``), run r of every candidate drawing the same
@@ -151,7 +154,8 @@ def _batched_marginal(src, dst, base_mask, p, generator, cand_ids, num_sims,
     candidate already in the seed set gets -inf.
     """
     words, B = _chunk_words(base_mask, cand_ids, num_sims)
-    counts = _ic_run(src, dst, words, p, generator, B, max_iters, num_sims)
+    counts = _ic_run(src, dst, words, p, generator, B, max_iters, num_sims,
+                     lists)
     return _chunk_gains(counts, base_mask, cand_ids, num_sims)
 
 
@@ -260,9 +264,11 @@ def _scatter_chunk(n, num_sims):
 def _greedy_scatter(edges, n, k, p, iterations_count, num_sims, generator):
     """Full-sweep greedy on the scatter simulator: every round evaluates
     every candidate, C at a time (``_scatter_chunk``), one ``ic_scatter``
-    call each. The fallback for graphs beyond the gather budget."""
+    call each, on one build of the edges' push lists. The fallback for
+    graphs beyond the gather budget."""
     dev = generator.device
     src, dst = directed_edges(edges, dev)
+    lists = edge_push_lists(src, dst, n) if wants_push_lists(dev) else None
     seeds = []
     total_evals = 0
     base_mask = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -270,8 +276,8 @@ def _greedy_scatter(edges, n, k, p, iterations_count, num_sims, generator):
     cand_all = torch.arange(n, device=dev)
     for _ in range(k):
         gains = torch.cat([
-            _batched_marginal(src, dst, base_mask, float(p), generator,
-                              cand_all[c0:c0 + C], int(num_sims),
+            _batched_marginal(src, dst, lists, base_mask, float(p),
+                              generator, cand_all[c0:c0 + C], int(num_sims),
                               int(iterations_count))
             for c0 in range(0, n, C)
         ])

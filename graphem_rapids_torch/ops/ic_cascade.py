@@ -43,6 +43,17 @@ at the source and the column not yet active or hit at the receiver), and
 get the coins they would get by drawing them all. The coins are not
 ``jax.random``'s; the two packages agree in distribution.
 
+The push lists. The kernel's steps are frontier-driven
+(``csrc/ic_common.cuh``): a step pushes from the vertices with a frontier
+word along their push lists, a CSR by source u of the (receiver v, slot j)
+pairs whose coin reads u's frontier (``push_lists``; the plan's
+``table_push_lists``, built on the card), and turns to the form's dense
+pass where the frontier's pairs pass the form's ``DENSE_BETA`` times G
+times the dense pass's slots (``table_dense_limit``). The lists are built
+once per plan, never per launch; a CUDA call without them raises. The
+private ``mode`` argument ("auto", "push" or "dense") forces a mode for
+the tests and the smoke run; the result is the same in every mode.
+
 ``ic_cascade_reference`` is the plain version, a Python loop of torch ops
 (``cascade_triples``, shared with the scatter form of ``ops/ic_scatter.py``;
 one host sync per step). ``ic_cascade`` runs it for tensors on the CPU and
@@ -66,15 +77,38 @@ PHILOX_ROUNDS = 10
 _MASK32 = 0xFFFFFFFF
 _TWO32 = 1 << 32
 
-# Threads per block of the cascade kernels (csrc/ic_common.cuh kThreads).
-THREADS = 256
-# The wrapper's int32 control buffer: the kernel's control block (two
-# 64-bit activation totals by step parity, the 64-bit barrier count, the
-# step count) in the first CTL_WORDS words, the (B,) counts after it.
-CTL_WORDS = 8
-STEPS_WORD = 6
+# Threads per block of the cascade kernels (csrc/ic_common.cuh kThreads;
+# kMinBlocks, 2, of them are resident on an SM).
+THREADS = 512
+# The wrapper's int32 control buffer: the kernel's control block (the
+# 64-bit barrier count, the three vertex lists' 64-bit counters, the step
+# count, the dense step count) in the first CTL_WORDS words, the (B,)
+# counts after it.
+CTL_WORDS = 10
+STEPS_WORD = 8
+DENSE_STEPS_WORD = 9
+# Modes of the kernels' steps (the private ``mode`` argument): "auto"
+# pushes a step whose frontier has few pairs behind it (``dense_limit``)
+# and takes the dense pass otherwise; "push" and "dense" force one.
+MODES = ("auto", "push", "dense")
+# The gather form's beta of ``dense_limit``, measured on an H100 (PERF.md):
+# its dense pass skips the words whose columns are all active, so it wins
+# early as a cascade fills the graph.
+DENSE_BETA = 0.025
+# (n, W) items of a table walk that one round of the H100's cooperative
+# grid covers (264 blocks of 512 threads): a table with no overflow row
+# that small takes every step dense in "auto" (``table_dense_limit``).
+SMALL_TABLE_ITEMS = 1 << 17
+# A dense_limit no step reaches.
+_NEVER_DENSE = 1 << 62
 # The bits of a byte, for the plain version's packing of its hit flags.
 _BYTE_BITS = torch.tensor([1 << k for k in range(8)], dtype=torch.uint8)
+# Triples of one sort of the push lists' build: bounds its working set
+# (about 40 bytes a triple) whatever the graph.
+PUSH_SORT_CHUNK = 1 << 24
+# Counters the self triples' runs spread their updates over (see
+# ``push_lists``).
+SPREAD = 1024
 # Slots of the plain version's gather per chunk: bounds its working set
 # (about 100 bytes per attempted coin) on a card at the 1M-vertex plan.
 REF_CHUNK_WORDS = 1 << 20
@@ -209,8 +243,10 @@ def check_packed(name, tensors, seed_words, key, thr, max_iters, num_cols,
 
 
 def _check(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
-           num_cols, runs=None):
-    """Raises on what neither version takes."""
+           num_cols, runs=None, lists=None, mode="auto"):
+    """Raises on what neither version takes, and on a CUDA call without
+    push lists."""
+    check_mode("ic_cascade", mode)
     check_packed("ic_cascade", dict(table=table, ov_ptr=ov_ptr,
                                     ov_src=ov_src),
                  seed_words, key, thr, max_iters, num_cols, runs)
@@ -225,6 +261,11 @@ def _check(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
     if seed_words.shape[0] != n:
         raise ValueError(f"ic_cascade: seed_words must be (n, W) with n = "
                          f"{n} table rows, got {tuple(seed_words.shape)}")
+    if lists is not None:
+        check_lists("ic_cascade", lists, n, seed_words.device)
+    elif seed_words.is_cuda:
+        raise ValueError("ic_cascade: a CUDA cascade needs the plan's push "
+                         "lists (table_push_lists, built once per plan)")
 
 
 def cascade_triples(src, dst, slot, seed_words, key, thr, max_iters,
@@ -239,9 +280,14 @@ def cascade_triples(src, dst, slot, seed_words, key, thr, max_iters,
     ``runs``) and ORs the fired ones into ``hit``: the coins that can
     change the result, each a function of (step, receiver, slot, run)
     alone, so the chunking changes nothing.
-    A dict ``stats`` receives 'coins', the number of coins drawn, and
+    A dict ``stats`` receives 'coins', the number of coins drawn,
     'attempted', the number of triples whose source was in the frontier
-    (in some column) at some step: those whose receiver must be read.
+    (in some column) at some step: those whose receiver must be read,
+    'step_pairs', for each step the number of triples whose source was in
+    the frontier and is not their receiver: the pairs a push step of the
+    kernels walks (the push lists), 'pushed', the number of such triples
+    over the whole cascade, each counted once, and 'sources', the number
+    of vertices that were in the frontier at some step.
     """
     n, W = seed_words.shape
     dev = seed_words.device
@@ -249,15 +295,23 @@ def cascade_triples(src, dst, slot, seed_words, key, thr, max_iters,
     active = seed_words.clone()
     frontier = seed_words
     steps = coins = 0
+    step_pairs = []
     tried = None if stats is None else torch.zeros(
         src.shape[0], dtype=torch.bool, device=dev)
+    sources = None if stats is None else torch.zeros(
+        n, dtype=torch.bool, device=dev)
     for t in range(int(max_iters)):
+        if sources is not None:
+            sources |= (frontier != 0).any(dim=1)
         hit = torch.zeros(n * W * 32, dtype=torch.bool, device=dev)
+        pairs = torch.zeros((), dtype=torch.int64, device=dev)
         for e0 in range(0, src.shape[0], chunk):
             s, d = src[e0:e0 + chunk].long(), dst[e0:e0 + chunk].long()
             fs = frontier[s]
             if tried is not None:
-                tried[e0:e0 + chunk] |= (fs != 0).any(dim=1)
+                behind = (fs != 0).any(dim=1)
+                tried[e0:e0 + chunk] |= behind
+                pairs += (behind & (s != d)).sum()
             g = fs & ~active[d]  # attempts that can change hit
             e, w = torch.nonzero(g, as_tuple=True)
             bits = (g[e, w][:, None] >> shifts) & 1
@@ -275,29 +329,27 @@ def cascade_triples(src, dst, slot, seed_words, key, thr, max_iters,
         active |= newly
         frontier = newly
         steps += 1
+        if stats is not None:
+            step_pairs.append(int(pairs))
         if not bool(newly.any()):  # one host sync per step
             break
     if stats is not None:
         stats["coins"] = coins
         stats["attempted"] = int(tried.sum())
+        stats["pushed"] = int((tried & (src != dst)).sum())
+        stats["sources"] = int(sources.sum())
+        stats["step_pairs"] = step_pairs
     counts = unpack_columns(active, int(num_cols)).sum(dim=0,
                                                        dtype=torch.int32)
     return active, counts, torch.tensor([steps], dtype=torch.int32,
                                         device=dev)
 
 
-def ic_cascade_reference(table, ov_ptr, ov_src, seed_words, key, thr,
-                         max_iters, num_cols, runs=None, stats=None):
-    """Plain PyTorch cascade: (active (n, W) int32, counts (B,) int32,
-    steps (1,) int32), as the kernel gives them.
-
-    Every table slot and overflow in-edge is one (receiver v, slot j,
-    source u) triple (j = cap + o for overflow in-edge o), run by
-    ``cascade_triples``. A dict ``stats`` receives 'coins', the number of
-    coins drawn.
-    """
+def table_triples(table, ov_ptr, ov_src):
+    """(src, dst, slot) int64: every table slot and overflow in-edge as one
+    (receiver v, slot j, source u) triple, j = cap + o for overflow in-edge
+    o; the slots row-major, then the overflow list."""
     n, cap = table.shape
-    W = seed_words.shape[1]
     dev = table.device
     O = ov_src.shape[0]
     rows = torch.arange(n, device=dev)
@@ -306,19 +358,182 @@ def ic_cascade_reference(table, ov_ptr, ov_src, seed_words, key, thr,
     slot = torch.cat([torch.arange(cap, device=dev).repeat(n),
                       cap + torch.arange(O, device=dev)])
     src = torch.cat([table.reshape(-1).long(), ov_src.long()])
+    return src, dst, slot
+
+
+def ic_cascade_reference(table, ov_ptr, ov_src, seed_words, key, thr,
+                         max_iters, num_cols, runs=None, stats=None):
+    """Plain PyTorch cascade: (active (n, W) int32, counts (B,) int32,
+    steps (1,) int32), as the kernel gives them.
+
+    The ``table_triples`` are run by ``cascade_triples``. A dict ``stats``
+    receives what ``cascade_triples`` counts.
+    """
+    src, dst, slot = table_triples(table, ov_ptr, ov_src)
     return cascade_triples(src, dst, slot, seed_words, key, thr, max_iters,
                            num_cols, check_runs(num_cols, runs),
-                           max(1, REF_CHUNK_WORDS // W), stats)
+                           max(1, REF_CHUNK_WORDS // seed_words.shape[1]),
+                           stats)
+
+
+def push_lists(count, n, key_of, pair_of, device):
+    """Push lists of ``count`` (receiver, slot, source) triples over n
+    vertices: (out_ptr (n + 1,), out_recv (count,), out_slot (count,))
+    int32 on ``device``, a CSR by source in triple order (a stable sort by
+    source). ``key_of(lo, hi)`` gives the int32 sources of triples lo..hi
+    - 1, with n for a triple whose receiver is its source (it can never
+    fire): those sort past out_ptr[n], where no row reaches them.
+    ``pair_of(idx)`` gives the int32 (receivers, slots) of the int64
+    triple indices ``idx``.
+
+    Up to PUSH_SORT_CHUNK triples: one stable int32 sort. Past it, so that
+    the working set stays bounded: a count of each source, then per chunk
+    a stable sort, each triple placed at its row's next free entry (its
+    run's first index found by a search of the sorted chunk, and the
+    rows' fill advanced once a run; the runs of key n, which may be
+    millions long, add their zeros to SPREAD counters, not to one). No
+    step waits on the host. ``push_lists.builds`` counts the builds."""
+    push_lists.builds += 1
+    n = int(n)
+    verts = torch.arange(n + 1, dtype=torch.int32, device=device)
+    if count <= PUSH_SORT_CHUNK:
+        key, idx = torch.sort(key_of(0, count), stable=True)
+        ptr = torch.searchsorted(key, verts, out_int32=True)
+        del key
+        return (ptr,) + tuple(pair_of(idx))
+    chunks = [(lo, min(count, lo + PUSH_SORT_CHUNK))
+              for lo in range(0, count, PUSH_SORT_CHUNK)]
+    spread = torch.arange(PUSH_SORT_CHUNK, device=device) % SPREAD + n + 1
+    rows = torch.zeros(n + 1 + SPREAD, dtype=torch.int32, device=device)
+    for lo, hi in chunks:
+        key = key_of(lo, hi)
+        rows.index_add_(0, torch.where(key == n, spread[:hi - lo], key),
+                        torch.ones_like(key))
+    fill = torch.zeros(n + 1 + SPREAD, dtype=torch.int64, device=device)
+    torch.cumsum(rows[:n], 0, out=fill[1:n + 1])  # row starts; n: self
+    ptr = fill[:n + 1].to(torch.int32)
+    out_recv = torch.empty(count, dtype=torch.int32, device=device)
+    out_slot = torch.empty(count, dtype=torch.int32, device=device)
+    for lo, hi in chunks:
+        key, idx = torch.sort(key_of(lo, hi), stable=True)
+        first = torch.searchsorted(key, key)
+        at = torch.arange(hi - lo, device=device)
+        run = at == first
+        k = key.long()
+        pos = fill[k] + (at - first)
+        out_recv[pos], out_slot[pos] = pair_of(idx + lo)
+        ends = torch.searchsorted(key, key, right=True)
+        fill.index_add_(0, torch.where(run, k, spread[:hi - lo]),
+                        torch.where(run, ends - first, 0))
+    return ptr, out_recv, out_slot
+
+
+push_lists.builds = 0
+
+
+def table_push_lists(table, ov_src, ov_dst):
+    """``push_lists`` of the gather plan: table slot (v, j) holding u is the
+    pair (v, j) in u's row, overflow in-edge o of v (``ov_dst[o]`` = v) the
+    pair (v, cap + o); the self pads, and any self-loop, drop out. The
+    triples' indices stay below 2^31 (the table budget), so their
+    arithmetic is int32."""
+    n, cap = table.shape
+    dev = table.device
+    flat = table.reshape(-1)
+    NC, O = flat.shape[0], ov_src.shape[0]
+
+    def key_of(lo, hi):
+        parts = []
+        if lo < NC:
+            t = flat[lo:min(hi, NC)]
+            row = torch.arange(lo, min(hi, NC), dtype=torch.int32,
+                               device=dev) // cap
+            parts.append(torch.where(t == row, n, t))
+        if hi > NC:
+            a, b = max(lo, NC) - NC, hi - NC
+            o = ov_src[a:b]
+            parts.append(torch.where(o == ov_dst[a:b], n, o))
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def pair_of(idx):
+        idx = idx.to(torch.int32)
+        recv, slot = idx // cap, idx % cap
+        if O:
+            over = idx >= NC
+            o = (idx - NC).clamp(min=0)
+            recv = torch.where(over, ov_dst[o.clamp(max=O - 1)], recv)
+            slot = torch.where(over, cap + o, slot)
+        return recv, slot
+
+    return push_lists(NC + O, n, key_of, pair_of, dev)
+
+
+def check_lists(name, lists, n, device):
+    """Raises unless ``lists`` is push lists over n vertices on ``device``:
+    (n + 1,), (P,) and (P,) int32, contiguous, P below 2^31."""
+    if not isinstance(lists, (tuple, list)) or len(lists) != 3:
+        raise ValueError(f"{name}: lists must be (out_ptr, out_recv, "
+                         f"out_slot)")
+    out_ptr, recv, slot = lists
+    for label, x in (("out_ptr", out_ptr), ("out_recv", recv),
+                     ("out_slot", slot)):
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name}: {label} must be int32, got {x.dtype}")
+        if x.device != torch.device(device):
+            raise ValueError(f"{name}: {label} is on {x.device}, the seed "
+                             f"words on {device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+    if out_ptr.shape != (n + 1,) or recv.ndim != 1 or \
+            slot.shape != recv.shape or recv.shape[0] >= 1 << 31:
+        raise ValueError(f"{name}: lists must be ({n + 1},), (P,) and (P,) "
+                         f"with P < 2^31, got {tuple(out_ptr.shape)}, "
+                         f"{tuple(recv.shape)} and {tuple(slot.shape)}")
+
+
+def check_mode(name, mode):
+    """Raises unless ``mode`` is one of MODES."""
+    if mode not in MODES:
+        raise ValueError(f"{name}: mode must be one of {MODES}, got {mode!r}")
+
+
+def group_lanes(W):
+    """Lanes of a warp per vertex or pair for W words: min(32, the power
+    of two at least W)."""
+    return min(32, 1 << max(0, int(W) - 1).bit_length())
+
+
+def dense_limit(mode, dense_slots, beta, W):
+    """The kernels' dense_limit: a step with more pairs behind its frontier
+    is dense. "auto": ``beta`` times G (``group_lanes(W)``) times the dense
+    pass's ``dense_slots``: the dense passes fall further behind the push
+    pass as W grows (the push pass puts G lanes on a pair's words, the
+    dense passes a lane on a word's slots or on an edge's words)."""
+    if mode == "push":
+        return _NEVER_DENSE
+    if mode == "dense":
+        return -1
+    return int(beta * group_lanes(W) * dense_slots)
+
+
+def table_dense_limit(mode, n, cap, O, W):
+    """The gather kernel's dense_limit: ``dense_limit`` over its n * cap + O
+    slots, except in "auto" for a table with no overflow row (O = 0) whose
+    walk is at most SMALL_TABLE_ITEMS (vertex, word) items: there every
+    step is dense, one item a thread, a shorter chain than a push step's
+    (measured on a 2,000-vertex greedy chunk; a hub's overflow rows make
+    the walk slower than the push, PERF.md)."""
+    if mode == "auto" and O == 0 and n * W <= SMALL_TABLE_ITEMS:
+        return -1
+    return dense_limit(mode, n * cap + O, DENSE_BETA, W)
 
 
 def _kernel_fn():
     fn = _build.load("ic_cascade").graphem_ic_cascade_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
+        ctypes.c_ulonglong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p,
     ]
     return fn
 
@@ -334,52 +549,87 @@ def cascade_grid(device, items, lib="ic_cascade"):
     return max(1, min(sm_count * per_sm, -(-items // THREADS)))
 
 
+def cascade_state(seed_words, num_cols):
+    """The kernels' state and scratch for one cascade: active (n, W),
+    hits (3, n, W) (a step's hit words in buffer t % 3), lists (7, n)
+    (stamps, three lists' vertices and offsets), all uninitialized, and
+    ctl (CTL_WORDS + B,) zeroed."""
+    n, W = seed_words.shape
+    dev = seed_words.device
+    return (torch.empty_like(seed_words),
+            torch.empty((3, n, W), dtype=torch.int32, device=dev),
+            torch.empty((7, n), dtype=torch.int32, device=dev),
+            torch.zeros(CTL_WORDS + int(num_cols), dtype=torch.int32,
+                        device=dev))
+
+
+def launch_result(active, ctl, stats):
+    """(active, counts, steps) of a launch; ``stats`` (a dict) receives
+    'dense_steps', a (1,) int32 device tensor."""
+    if stats is not None:
+        stats["dense_steps"] = ctl[DENSE_STEPS_WORD:DENSE_STEPS_WORD + 1]
+    return active, ctl[CTL_WORDS:], ctl[STEPS_WORD:STEPS_WORD + 1]
+
+
 def ic_cascade_cuda(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
-                    num_cols, runs=None):
-    """Launch the cascade kernel; same outputs as ic_cascade_reference."""
+                    num_cols, runs=None, lists=None, *, mode="auto",
+                    stats=None):
+    """Launch the cascade kernel; same outputs as ic_cascade_reference.
+    ``lists`` are the plan's push lists (``build_cascade_plan``'s
+    'push')."""
+    check_mode("ic_cascade", mode)
+    if lists is None:
+        raise ValueError("ic_cascade_cuda needs the plan's push lists")
     if not table.is_cuda:
         raise ValueError("ic_cascade_cuda takes CUDA tensors")
     dev = table.device
     n, cap = table.shape
     W = seed_words.shape[1]
-    active = torch.empty_like(seed_words)
-    frontier = torch.empty((2, n, W), dtype=torch.int32, device=dev)
-    ctl = torch.zeros(CTL_WORDS + int(num_cols), dtype=torch.int32,
-                      device=dev)
-    nb = cascade_grid(dev, n * W)
+    O = ov_src.shape[0]
+    out_ptr, out_recv, out_slot = lists
+    G = group_lanes(W)
+    active, hits, scratch, ctl = cascade_state(seed_words, num_cols)
+    nb = cascade_grid(dev, max(n * W, (n + out_recv.shape[0]) * G))
     fn = _kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         ic_cascade.launches += 1
         rc = fn(table.data_ptr(), ov_ptr.data_ptr(), ov_src.data_ptr(),
-                seed_words.data_ptr(), active.data_ptr(),
-                frontier.data_ptr(), key.data_ptr(), ctl.data_ptr(), n, cap,
-                W, int(num_cols), check_runs(num_cols, runs), int(thr),
-                int(max_iters), nb, stream)
+                out_ptr.data_ptr(), out_recv.data_ptr(), out_slot.data_ptr(),
+                seed_words.data_ptr(), active.data_ptr(), hits.data_ptr(),
+                scratch.data_ptr(), key.data_ptr(),
+                ctl.data_ptr(), n, cap, W, int(num_cols),
+                check_runs(num_cols, runs), G, int(thr), int(max_iters),
+                table_dense_limit(mode, n, cap, O, W), nb, stream)
     if rc != 0:
         raise RuntimeError(f"ic_cascade kernel launch failed: CUDA error "
                            f"{rc}")
-    return (active, ctl[CTL_WORDS:],
-            ctl[STEPS_WORD:STEPS_WORD + 1])
+    return launch_result(active, ctl, stats)
 
 
 def ic_cascade(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
-               num_cols, runs=None):
+               num_cols, runs=None, lists=None, *, mode="auto", stats=None):
     """One cascade from the packed seed words: (active (n, W) int32,
     counts (num_cols,) int32, steps (1,) int32), on the tensors' device.
     Column b draws the coins of run b mod ``runs`` (None: num_cols, every
     column its own).
 
-    The kernel for CUDA tensors (one launch, no host sync), the plain
-    version for CPU tensors.
+    The kernel for CUDA tensors (one launch, no host sync), which needs the
+    plan's push ``lists`` (``build_cascade_plan``'s 'push'); the plain
+    version for CPU
+    tensors, which needs none. ``mode`` (private: "auto", "push" or
+    "dense") forces the kernel's steps; the result is the same. A dict
+    ``stats`` receives the kernel's 'dense_steps' (a device tensor), or
+    what the plain version counts.
     """
     _check(table, ov_ptr, ov_src, seed_words, key, thr, max_iters, num_cols,
-           runs)
+           runs, lists, mode)
     if table.is_cuda:
         return ic_cascade_cuda(table, ov_ptr, ov_src, seed_words, key, thr,
-                               max_iters, num_cols, runs)
+                               max_iters, num_cols, runs, lists, mode=mode,
+                               stats=stats)
     return ic_cascade_reference(table, ov_ptr, ov_src, seed_words, key, thr,
-                                max_iters, num_cols, runs)
+                                max_iters, num_cols, runs, stats)
 
 
 ic_cascade.launches = 0

@@ -25,6 +25,14 @@ is a function of (t, e, b mod runs) and the key alone: the kernel and the
 plain version each draw only coins that can change the result, and give
 the same active words, counts and steps.
 
+The kernel's steps are ``csrc/ic_common.cuh``'s frontier-driven steps,
+shared with the gather form: they push along the push lists of the
+directed edges (``edge_push_lists``: edge e is the pair (dst[e], e) in
+src[e]'s row), built once per directed list and passed to every launch,
+and take the edge sweep as the dense pass where the frontier's pairs
+pass ``DENSE_BETA`` times G times 2E (``ic_cascade.dense_limit``). The
+private ``mode`` argument forces a mode, as in ``ops/ic_cascade.py``.
+
 ``ic_scatter_reference`` is the plain version (``cascade_triples`` over the
 (dst[e], e, src[e]) triples, edges in chunks). ``ic_scatter`` runs it for
 tensors on the CPU and launches the kernel for CUDA tensors, or raises;
@@ -37,21 +45,32 @@ import torch
 
 from .. import _build
 from .ic_cascade import (
-    CTL_WORDS,
     REF_CHUNK_WORDS,
-    STEPS_WORD,
     cascade_grid,
+    cascade_state,
     cascade_triples,
+    check_lists,
+    check_mode,
     check_packed,
     check_runs,
+    dense_limit,
+    group_lanes,
+    launch_result,
+    push_lists,
 )
 
 # The kernel's indices: 2E and n * W each stay below this.
 INDEX_LIMIT = 1 << 31
+# The scatter form's beta of ``dense_limit``, measured on an H100
+# (PERF.md): its dense pass reads every edge whatever is active.
+DENSE_BETA = 0.1
 
 
-def _check(src, dst, seed_words, key, thr, max_iters, num_cols, runs=None):
-    """Raises on what neither version takes."""
+def _check(src, dst, seed_words, key, thr, max_iters, num_cols, runs=None,
+           lists=None, mode="auto"):
+    """Raises on what neither version takes, and on a CUDA call without
+    push lists."""
+    check_mode("ic_scatter", mode)
     check_packed("ic_scatter", dict(src=src, dst=dst), seed_words, key, thr,
                  max_iters, num_cols, runs)
     if src.ndim != 1 or dst.shape != src.shape:
@@ -63,6 +82,26 @@ def _check(src, dst, seed_words, key, thr, max_iters, num_cols, runs=None):
     if seed_words.numel() >= INDEX_LIMIT:
         raise ValueError(f"ic_scatter: n * W = {seed_words.numel()} words "
                          f"must stay below 2^31")
+    if lists is not None:
+        check_lists("ic_scatter", lists, seed_words.shape[0],
+                    seed_words.device)
+    elif seed_words.is_cuda:
+        raise ValueError("ic_scatter: a CUDA cascade needs the edges' push "
+                         "lists (edge_push_lists, built once per list)")
+
+
+def edge_push_lists(src, dst, n):
+    """``push_lists`` of the (2E,) int32 directed edges over n vertices:
+    edge e is the pair (dst[e], e) in src[e]'s row, rows in edge order; a
+    self-loop drops out (past out_ptr[n])."""
+    def key_of(lo, hi):
+        s = src[lo:hi]
+        return torch.where(s != dst[lo:hi], s, int(n))
+
+    def pair_of(idx):
+        return dst[idx], idx.to(torch.int32)
+
+    return push_lists(src.shape[0], n, key_of, pair_of, src.device)
 
 
 def ic_scatter_reference(src, dst, seed_words, key, thr, max_iters,
@@ -87,62 +126,69 @@ def ic_scatter_reference(src, dst, seed_words, key, thr, max_iters,
 def _kernel_fn():
     fn = _build.load("ic_scatter").graphem_ic_scatter_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 11 + [
+        ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4 + [
+        ctypes.c_ulonglong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p,
     ]
     return fn
 
 
 def ic_scatter_cuda(src, dst, seed_words, key, thr, max_iters, num_cols,
-                    runs=None):
+                    runs=None, lists=None, *, mode="auto", stats=None):
     """Launch the scatter cascade kernel; same outputs as
-    ic_scatter_reference."""
+    ic_scatter_reference. ``lists`` are the edges' push lists
+    (``edge_push_lists``)."""
+    check_mode("ic_scatter", mode)
+    if lists is None:
+        raise ValueError("ic_scatter_cuda needs the edges' push lists")
     if not seed_words.is_cuda:
         raise ValueError("ic_scatter_cuda takes CUDA tensors")
     dev = seed_words.device
     n, W = seed_words.shape
     E2 = src.shape[0]
-    active = torch.empty_like(seed_words)
-    state = torch.empty((2, n, W), dtype=torch.int32, device=dev)
-    ctl = torch.zeros(CTL_WORDS + int(num_cols), dtype=torch.int32,
-                      device=dev)
-    nb = cascade_grid(dev, max(E2, n * W), "ic_scatter")
+    out_ptr, out_recv, out_slot = lists
+    G = group_lanes(W)
+    active, hits, scratch, ctl = cascade_state(seed_words, num_cols)
+    nb = cascade_grid(dev, max(E2, (n + out_recv.shape[0]) * G),
+                      "ic_scatter")
     fn = _kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         ic_scatter.launches += 1
-        rc = fn(src.data_ptr(), dst.data_ptr(), seed_words.data_ptr(),
-                active.data_ptr(), state[0].data_ptr(), state[1].data_ptr(),
-                key.data_ptr(), ctl.data_ptr(), n, E2, W, int(num_cols),
-                check_runs(num_cols, runs), int(thr), int(max_iters), nb,
-                stream)
+        rc = fn(src.data_ptr(), dst.data_ptr(), out_ptr.data_ptr(),
+                out_recv.data_ptr(), out_slot.data_ptr(),
+                seed_words.data_ptr(), active.data_ptr(), hits.data_ptr(),
+                scratch.data_ptr(), key.data_ptr(),
+                ctl.data_ptr(), n, E2, W, int(num_cols),
+                check_runs(num_cols, runs), G, int(thr), int(max_iters),
+                dense_limit(mode, E2, DENSE_BETA, W), nb, stream)
     if rc != 0:
         raise RuntimeError(f"ic_scatter kernel launch failed: CUDA error "
                            f"{rc}")
-    return active, ctl[CTL_WORDS:], ctl[STEPS_WORD:STEPS_WORD + 1]
+    return launch_result(active, ctl, stats)
 
 
 def ic_scatter(src, dst, seed_words, key, thr, max_iters, num_cols,
-               runs=None):
+               runs=None, lists=None, *, mode="auto", stats=None):
     """One scatter-form cascade from the packed seed words: (active (n, W)
     int32, counts (num_cols,) int32, steps (1,) int32), on the tensors'
     device. Column b draws the coins of run b mod ``runs`` (None:
     num_cols, every column its own).
 
-    The kernel for CUDA tensors (one launch, no host sync), the plain
-    version for CPU tensors. Endpoints must lie in [0, n); neither
-    version reads them back to check.
+    The kernel for CUDA tensors (one launch, no host sync), which needs the
+    edges' push ``lists`` (``edge_push_lists``); the plain version for CPU
+    tensors, which needs none. ``mode`` (private) and ``stats`` as in
+    ``ic_cascade``. Endpoints must lie in [0, n); neither version reads
+    them back to check.
     """
-    _check(src, dst, seed_words, key, thr, max_iters, num_cols, runs)
+    _check(src, dst, seed_words, key, thr, max_iters, num_cols, runs, lists,
+           mode)
     if seed_words.is_cuda:
         return ic_scatter_cuda(src, dst, seed_words, key, thr, max_iters,
-                               num_cols, runs)
+                               num_cols, runs, lists, mode=mode, stats=stats)
     return ic_scatter_reference(src, dst, seed_words, key, thr, max_iters,
-                                num_cols, runs)
+                                num_cols, runs, stats)
 
 
 ic_scatter.launches = 0

@@ -13,15 +13,18 @@ Two frontier updates, as in the JAX package:
   ``ops/ic_cascade.py``: on a card one launch of the CUDA kernel
   ``csrc/ic_cascade.cu``, which holds the step loop, the frontier test and
   the coins on the card as JAX's jitted ``while_loop`` does, on state
-  packed 32 columns to an int32 word; on the CPU its plain version. Coins
-  are Philox draws keyed by one 64-bit key from the caller's generator and
-  counted by (step, vertex, slot, column), so the card and the CPU give the
-  same counts from the same key;
+  packed 32 columns to an int32 word, its steps driven by the frontier
+  along the plan's push lists (built on the card once per plan, where a
+  card runs the cascade); on the CPU its plain version. Coins are Philox
+  draws keyed by one 64-bit key from the caller's generator and counted
+  by (step, vertex, slot, column), so the card and the CPU give the same
+  counts from the same key;
 - scatter (``_ic_run``, the fallback for graphs whose table would exceed
   TABLE_BUDGET_SLOTS): every directed edge ORs its fired attempts into
   the receiver's hit words. The whole cascade is one call of
   ``ops/ic_scatter.py``: on a card one launch of ``csrc/ic_scatter.cu``
-  over the (2E,) int32 edge list (``directed_edges``), with the same
+  over the (2E,) int32 edge list (``directed_edges``) and its push lists
+  (``edge_push_lists``, built on the card once per list), with the same
   packed state, the same stop rule and the same Philox coins (the
   directed edge index as the slot); on the CPU its plain version.
 
@@ -42,8 +45,9 @@ from .ic_cascade import (
     column_mask_words,
     draw_key,
     ic_cascade,
+    table_push_lists,
 )
-from .ic_scatter import ic_scatter
+from .ic_scatter import edge_push_lists, ic_scatter
 
 # Beyond this many table slots the gather formulation's memory stops paying
 # for itself; the scatter path takes over (the JAX package's bound).
@@ -77,10 +81,12 @@ def directed_edges(edges, device):
                  for a in _directed_np(edges))
 
 
-def _ic_run(src, dst, words, p, generator, num_cols, max_iters, runs=None):
+def _ic_run(src, dst, words, p, generator, num_cols, max_iters, runs=None,
+            lists=None):
     """Scatter-formulation batched IC cascade: one ``ic_scatter`` call.
 
     src, dst : (2E,) int32 directed edges (``directed_edges``).
+    lists : their push lists (``edge_push_lists``), which a card needs.
     words : (n, W) int32 packed seed words of ``num_cols`` columns, one
     seed set per column; column b draws the coins of run b mod ``runs``
     (None: every column its own). One key is drawn from ``generator``.
@@ -89,8 +95,14 @@ def _ic_run(src, dst, words, p, generator, num_cols, max_iters, runs=None):
     """
     _, counts, _ = ic_scatter(src, dst, words, draw_key(generator),
                               coin_threshold(p), int(max_iters),
-                              int(num_cols), runs)
+                              int(num_cols), runs, lists=lists)
     return counts
+
+
+def wants_push_lists(device):
+    """Whether the cascades on ``device`` need push lists: only the CUDA
+    kernels read them."""
+    return torch.device(device).type == "cuda"
 
 
 def cascade_plan_arrays(edges, n):
@@ -127,10 +139,18 @@ def upload_plan(arrays, device):
 
 def build_cascade_plan(edges, n, device):
     """Self-padded in-neighbour table + hub overflow for the gather IC, on
-    ``device``: ``cascade_plan_arrays`` uploaded, or None beyond the
-    table budget."""
+    ``device``: ``cascade_plan_arrays`` uploaded, or None beyond the table
+    budget. Where the cascades need them (``wants_push_lists``), the
+    kernel's push lists under 'push' as (out_ptr, out_recv, out_slot),
+    built once here on the device (``table_push_lists``)."""
     arrays = cascade_plan_arrays(edges, n)
-    return None if arrays is None else upload_plan(arrays, device)
+    if arrays is None:
+        return None
+    plan = upload_plan(arrays, device)
+    if wants_push_lists(device):
+        plan["push"] = table_push_lists(plan["table"], plan["ov_src"],
+                                        plan["ov_dst"])
+    return plan
 
 
 def seed_words(seed_mask, num_sims):
@@ -153,7 +173,8 @@ def _ic_run_table(plan, words, p, generator, num_cols, max_iters,
     """
     _, counts, _ = ic_cascade(plan["table"], plan["ov_ptr"], plan["ov_src"],
                               words, draw_key(generator), coin_threshold(p),
-                              int(max_iters), int(num_cols), runs)
+                              int(max_iters), int(num_cols), runs,
+                              lists=plan.get("push"))
     return counts
 
 
@@ -165,7 +186,8 @@ def independent_cascade(edges, n, seeds, p=0.1, num_sims=64, max_iters=200,
     n : number of vertices. seeds : sequence of int, initially active.
     p : per-edge propagation probability. num_sims : Monte-Carlo batch.
     max_iters : cascade-depth cap. key : int seed or torch.Generator.
-    plan : a build_cascade_plan result to reuse. device : None is CUDA,
+    plan : a build_cascade_plan result to reuse (with its push lists).
+    device : None is CUDA,
     which must exist; pass 'cpu' to run on the CPU.
 
     Returns (counts (num_sims,) np.ndarray of activated counts, max_iters).
@@ -186,8 +208,10 @@ def independent_cascade(edges, n, seeds, p=0.1, num_sims=64, max_iters=200,
                                int(max_iters))
     else:
         src, dst = directed_edges(edges, dev)
+        lists = edge_push_lists(src, dst, n) if wants_push_lists(dev) \
+            else None
         counts = _ic_run(src, dst, words, float(p), gen, int(num_sims),
-                         int(max_iters))
+                         int(max_iters), lists=lists)
     return counts.cpu().numpy(), max_iters
 
 

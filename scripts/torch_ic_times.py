@@ -3,7 +3,7 @@
 checkouts in turns on one CUDA card.
 
     python3 scripts/torch_ic_times.py --repo OLD --repo NEW \\
-        --repo NEW --repo OLD
+        --repo NEW --repo OLD [--sweep]
 
 Each ``--repo`` is a checkout holding ``graphem_rapids_torch``; each runs
 in a process of its own, in the order given (parent, change, change,
@@ -24,7 +24,22 @@ of the first; a checkout that runs out of device memory there prints an
 ``error`` line instead and goes on. Then ``greedy_seed_selection`` on
 chip_smoke's hub graph (k=3, p=0.2, 32 runs) and on the 2,000-vertex graph
 of its greedy phase (k=5, p=0.1, 32 runs), warmed up once, wall seconds
-of 2 calls each. One JSON line per measurement.
+of 2 calls each, and on a 20,000-vertex graph of the same kind (k=3, p=0.1,
+32 runs), warmed up once, 2 calls.
+
+Before those, the cascade kernels alone, back to back (``chip_smoke``'s
+``back_to_back_ms``) at the shapes of chip_smoke's phases 22 and 23 (the
+100K and 1M plans, the 1M and 12M edge lists, 10 random seeds in 64
+columns, p=0.1; the hub graph's first greedy chunk, B=2048, p=0.2), at
+the first greedy chunk of the 2,000-vertex graph (B=2048, p=0.1), and on
+a supercritical graph (the union of 12 random Hamiltonian cycles over
+1,000,000 vertices, degree 24, so that p=0.1 reaches most of it; its plan
+and its edge list; 10 random seeds in 64 columns), each at its own p and
+at p=1. A checkout whose kernels take push lists gets them built once per
+shape and runs its default mode; with ``--sweep`` it is also timed in
+each forced mode and at each ``DENSE_BETA`` of ``BETAS`` (the kernel's
+module's), and each variant's result is held against the default's
+(active words, counts and steps equal). One JSON line per measurement.
 """
 
 import argparse
@@ -68,7 +83,91 @@ def estimate_times(cs, grt, tag, label, adj, warm, reps):
                     min(wall) * 1e3, 1)
 
 
-def worker(repo):
+# the DENSE_BETA values of the sweep
+BETAS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5)
+
+
+def kernel_times(cs, tag, sweep):
+    """Back-to-back ms of the checkout's cascade kernels at the shapes of
+    chip_smoke's phases 22 and 23 and at a 2,000-vertex greedy chunk, at
+    each shape's p and at p=1."""
+    import torch
+
+    from graphem_rapids_torch.influence import _as_edges_and_n
+    from graphem_rapids_torch.ops import ic_cascade as icc
+    from graphem_rapids_torch.ops import ic_scatter as ics
+    from graphem_rapids_torch.ops import ic_sim as tic
+
+    key = torch.tensor(cs.IC_KEY, dtype=torch.int64, device="cuda")
+    adj1m = cs.ring_chords_graph()
+    cases = [("ic_cascade", c) for c in cs.ic_cases(
+        [("random_8_regular_100k", cs.regular_union_graph(100_000)),
+         ("ring_chords_1m", adj1m)])]
+    adj12m = cs.ring_chords_graph(cs.SCATTER_N, 3 * cs.SCATTER_N)
+    cases += [("ic_scatter", c) for c in cs.ic_cases(
+        [("ring_chords_1m", adj1m), ("ring_chords_12m", adj12m)])]
+    del adj1m, adj12m
+    # supercritical: p * degree = 2.4
+    adj24 = cs.regular_union_graph(1_000_000, cycles=12)
+    for kernel in ("ic_cascade", "ic_scatter"):
+        cases.append((kernel, cs.ic_cases([("regular_24_1m", adj24)])[0]))
+    del adj24
+    # the first greedy chunk on the 2,000-vertex graph of chip_smoke's
+    # greedy phase: candidates 0..63, 32 runs each, no hub overflow
+    adj2k = cs.regular_union_graph(2000)
+    mask = torch.zeros((2000, 64), dtype=torch.bool, device="cuda")
+    mask[torch.arange(64), torch.arange(64)] = True
+    cases.append(("ic_cascade", ("greedy_chunk_2000", adj2k,
+                                 mask.repeat_interleave(32, dim=1), 0.1, 32)))
+    pushing = hasattr(ics, "edge_push_lists")
+    for kernel, (label, adj, mask, p, runs) in cases:
+        edges, n = _as_edges_and_n(adj)
+        words = icc.pack_columns(mask)
+        B = mask.shape[1]
+        if kernel == "ic_cascade":
+            plan = tic.build_cascade_plan(edges, n, "cuda")
+            head = (plan["table"], plan["ov_ptr"], plan["ov_src"])
+            fn, lists = icc.ic_cascade, plan.get("push")
+        else:
+            head = tic.directed_edges(edges, "cuda")
+            fn = ics.ic_scatter
+            lists = ics.edge_push_lists(*head, n) if pushing else None
+        del edges
+        for pp in (p, 1.0):
+            args = head + (words, key, icc.coin_threshold(pp), 200, B, runs)
+            if lists is not None:
+                args += (lists,)
+            mod = icc if kernel == "ic_cascade" else ics
+            variants = [("default", {})]
+            if sweep and pushing:
+                variants += [(m, dict(mode=m)) for m in ("push", "dense")]
+                variants += [(f"beta={b}", dict(beta=b)) for b in BETAS]
+            want = None
+            for name, kw in variants:
+                beta = getattr(mod, "DENSE_BETA", None)
+                if "beta" in kw:
+                    mod.DENSE_BETA = kw.pop("beta")
+                try:
+                    stats = dict(stats={}) if pushing else {}
+                    got = fn(*args, **kw, **stats)
+                    ms = cs.back_to_back_ms(lambda kw=kw: fn(*args, **kw))
+                finally:
+                    if beta is not None:
+                        mod.DENSE_BETA = beta
+                want = got if want is None else want
+                row = dict(tag, phase="kernel_time", kernel=kernel,
+                           graph=label, p=pp, variant=name,
+                           steps=int(got[2]), back_to_back_ms=ms,
+                           equal=all(torch.equal(g, w)
+                                     for g, w in zip(got, want)))
+                if pushing:
+                    row["dense_steps"] = int(stats["stats"]["dense_steps"])
+                print(json.dumps(row), flush=True)
+        del head, words, lists
+        torch.cuda.empty_cache()
+
+
+def worker(repo, sweep=False):
     """Time one checkout; the port comes from ``repo``, the graphs and
     the profiler row from this script's chip_smoke.py."""
     sys.path.insert(0, os.path.abspath(repo))
@@ -88,6 +187,7 @@ def worker(repo):
                if (_build.CSRC_DIR / f"{name}.cu").exists()]
     if kernels:
         _build.build(kernels, force=True)
+    kernel_times(cs, tag, sweep)
     graphs = (("random_8_regular_100k", cs.regular_union_graph(100_000)),
               ("ring_chords_1m", cs.ring_chords_graph()))
     for label, adj in graphs:
@@ -104,7 +204,9 @@ def worker(repo):
     torch.cuda.empty_cache()
     greedy = (("hub", cs.hub_graph(), 3, 0.2, 50),
               ("regular_union_2000", cs.regular_union_graph(2000), 5, 0.1,
-               200))
+               200),
+              ("regular_union_20000", cs.regular_union_graph(20_000), 3,
+               0.1, 200))
     for label, adj, k, p, iters in greedy:
         def select():
             return grt.greedy_seed_selection(adj, k, p=p,
@@ -129,9 +231,10 @@ def main(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", action="append")
     ap.add_argument("--worker")
+    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args(argv)
     if args.worker:
-        return worker(args.worker)
+        return worker(args.worker, args.sweep)
     import torch
 
     if not torch.cuda.is_available():
@@ -145,7 +248,9 @@ def main(argv):
         env = dict(os.environ)
         env.pop("PYTHONPATH", None)
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--worker", repo], env=env, check=False)
+                              "--worker", repo]
+                             + ["--sweep"] * args.sweep, env=env,
+                             check=False)
         if res.returncode != 0:
             print(f"torch_ic_times: {repo} failed ({res.returncode})",
                   file=sys.stderr)

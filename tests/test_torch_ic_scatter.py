@@ -266,22 +266,25 @@ def test_mean_spread_matches_jax_ic_run(monkeypatch):
 def test_independent_cascade_takes_one_scatter_call(monkeypatch):
     """Past the table budget independent_cascade makes one ic_scatter call
     per cascade on the int32 edge list, with a key from the caller's
-    generator, and no ic_cascade call."""
+    generator, and no ic_cascade call; the edges' push lists go with it
+    where the kernel reads them (a card; here made to), and not to the
+    plain version on the CPU."""
     monkeypatch.setattr(tic, "TABLE_BUDGET_SLOTS", 0)
     edges, n = _hub_edges()
     calls = []
     real = tic.ic_scatter
 
-    def counted(*args):
-        calls.append(args)
-        return real(*args)
+    def counted(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
 
     monkeypatch.setattr(tic, "ic_scatter", counted)
     monkeypatch.setattr(tic, "ic_cascade", None)
     counts, _ = tic.independent_cascade(edges, n, [4, 9], p=0.2,
                                         num_sims=70, key=9, device="cpu")
     assert len(calls) == 1
-    src, dst, words, key, thr, max_iters, cols, runs = calls[0]
+    (src, dst, words, key, thr, max_iters, cols, runs), kwargs = calls[0]
+    assert kwargs == {"lists": None}
     assert src.dtype == dst.dtype == torch.int32 and src.shape == (
         2 * len(edges),)
     assert words.shape == (n, 3) and (thr, max_iters, cols, runs) == (
@@ -294,6 +297,14 @@ def test_independent_cascade_takes_one_scatter_call(monkeypatch):
                                        key=torch.Generator().manual_seed(9),
                                        device="cpu")
     np.testing.assert_array_equal(again, counts)
+    monkeypatch.setattr(tic, "wants_push_lists", lambda device: True)
+    again, _ = tic.independent_cascade(edges, n, [4, 9], p=0.2, num_sims=70,
+                                       key=9, device="cpu")
+    np.testing.assert_array_equal(again, counts)
+    assert len(calls) == 3
+    for got, want in zip(calls[2][1]["lists"],
+                         ics.edge_push_lists(src, dst, n)):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.fast
@@ -399,7 +410,8 @@ def test_kernel_matches_plain(cuda_device, B, runs, p, max_iters):
     words = icc.pack_columns(torch.as_tensor(seed, device=cuda_device))
     key = _key((0xDEADBEEF, 0x01234567), cuda_device)
     launches = ics.ic_scatter.launches
-    got = ics.ic_scatter(src, dst, words, key, thr, max_iters, B, runs)
+    got = ics.ic_scatter(src, dst, words, key, thr, max_iters, B, runs,
+                         ics.edge_push_lists(src, dst, n))
     torch.cuda.synchronize()
     assert ics.ic_scatter.launches == launches + 1
     want = ics.ic_scatter_reference(src, dst, words, key, thr, max_iters, B,
