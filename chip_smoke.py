@@ -93,7 +93,8 @@ Phases:
    scatter path's greedy, too, builds its lists once);
 9. card against CPU: a small graph, 5 injected-sample steps with
    knn_strategy='binfold', 'pallas' and 'approx', and 'binfold' with
-   ref_order='slot', on the card and on the CPU, allclose;
+   ref_order='slot', on the card and on the CPU, allclose (the 'pallas'
+   case runs again in phase 24);
 10. K3 against its plain version: one ring hop (the fold of a rank's ref
     tile, ids rank * R_pad + p, and the min-merge with the carry) by the
     kernel and by ring_fold_reference, at hop 0 and at later hops with a
@@ -137,7 +138,7 @@ Phases:
     phase 20 on this group;
 12. sharded against single-card: 5 injected-sample steps of the one-rank
     'ring_pallas' step and of GraphEmbedderTorch(knn_strategy='binfold'),
-    both on the card, allclose;
+    both on the card, allclose, with the engines' own sums;
 13. several cards, only where torch.cuda.device_count() >= 2: the cards'
     peer access and `nvidia-smi topo -m`, then min(count, 4) NCCL ranks,
     one process each; every rank's ring neighbours must be reachable
@@ -165,7 +166,7 @@ Phases:
     graph's construction at 100K), whose lowest eigenvalues are apart,
     where the card must align with eigsh at >= 0.95; the same with three
     hubs of 20,000, 10,000 and 5,000 edges, which must take the hub
-    block-fold plan (index_add_ on the card, not bit-reproducible), align
+    block-fold plan (its blocks summed by the accumulator), align
     with eigsh at >= 0.95, and whose card columns must equal the CPU's
     modulo sign at atol=1e-4; and the main path's
     8-regular graph, whose 8 lowest nontrivial eigenvalues lie within
@@ -181,8 +182,9 @@ Phases:
 16. graph against eager, run after phase 9: on phase 9's graph with
     knn_strategy='binfold' and on the 100K graph (K1), after one iteration
     each, 5 iterations by graph replay against 5 of the eager loop from the
-    same generator state and start, in deterministic mode: the samples of
-    every iteration and the positions must be bit-equal;
+    same generator state and start, with the engines' own sums (no global
+    switch): the samples of every iteration and the positions must be
+    bit-equal;
 17. approx: the 100K and the 1M graph with n_neighbors=48 (k+1 = 49 >
     K1's MAX_K) and init='random' must resolve 'approx'; each prints the
     fused-refs choice, whether the one-shot pass fits its budget,
@@ -207,7 +209,7 @@ Phases:
     with both ref orders on phase 9's graph, and 'ring_pallas' and
     'all_gather' on the 100K graph: after one iteration each, 5 replayed
     iterations against 5 of the eager loop from the same generator state,
-    in deterministic mode: samples and positions bit-equal;
+    with the engines' own sums: samples and positions bit-equal;
 21. host prep, run after phase 10: the engine's host prep of the 100K
     graph (flat table) and of the 1M graph (binned tables, 35,188
     overflow pairs): the edge extraction and the table build with the
@@ -261,15 +263,49 @@ Phases:
     (exact): three ic_scatter launches and no ic_cascade launch. The phase adds about 45 s
     to the run on an H100: the graph's build about 9 s, the plain version
     at 12M about 17 s over its three calls (p=0.1 about 10 s, timed once
-    in the compared run), each 12M estimate about 6 s of host work.
+    in the compared run), each 12M estimate about 6 s of host work;
+24. determinism, run after phases 5 and 6: beside each main-path run a
+    second engine of the same seed and options (the 100K flat graph with
+    init='auto', host eigsh; the 1M binned + overflow-plan graph with
+    init='auto', the card's Chebyshev): its start and its positions after
+    the run's iterations must be bit-equal to the first engine's; its
+    checkpoint after 25 replayed iterations, loaded into a third engine
+    and run 25 more, must equal its own positions after 50; phase 9's
+    'pallas' case runs again, and its card positions and max_abs_err must
+    equal the first run's. No check switches PyTorch's global determinism
+    on;
+25. the accumulator (csrc/segment_sum.cu: the tile sort and the sum)
+    against its plain version, after every other phase: the sums that
+    one eager step of each layout path that launches it asks for,
+    recorded from its engine (the second engine of each main-path graph
+    in phase 24, the quick start's and 'approx''s engines on both graphs,
+    the sharded engines of phase 11 and the karate engine of phase 15):
+    the intersection repulsion's 4*S*k terms of d=3 (30,720 into 100K and
+    1M rows; 'approx''s 98,304 in 96 tiles, a two-word tile mask), the
+    dynamic form, the tile sort and the sum; the 1M block plan's hub
+    blocks, the static form. Each is run twice by the kernel and once by
+    index_add_ on the CPU, bit-equal, and the tile sort's keys, places
+    and masks equal its plain version's (a stable torch.sort of each tile
+    on the CPU); the kernel's time per call, back to back and replayed in
+    a CUDA graph as the layout step runs it (and the tile sort's and the
+    sum's alone, replayed), the plain versions on the CPU, index_add_ and
+    a stable torch.sort of the tiles on the card (the library calls;
+    replayed too), the plain-torch form (a stable torch.sort,
+    searchsorted offsets, torch.segment_reduce), and the bounds (each id,
+    value and touched row read once and each touched row written once;
+    the sort's ids read, keys, places and touched mask words written,
+    against its compare-exchanges).
 
 Each main-path, quick-start, greedy, scatter-path (23), sharded and
 toolkit phase zeroes the kernels' launch counts just before its timed run
-and reads them just after. A handler on the spectral init's logger
-records every tier-down warning, and a phase whose engines logged one
-fails. The line before the last is the kernel summary {"kernels": [...]};
-the last line is {"ok": true, "device": {...}}. Any failure raises and
-exits nonzero.
+and reads them just after; each layout path also fails unless the
+accumulator's sum ran at least once an iteration (once for the
+intersection repulsion, once more for a hub block plan) and its tile sort
+exactly once an iteration (the intersection repulsion's ids). A handler
+on the spectral init's logger records every tier-down warning, and a
+phase whose engines logged one fails. The line before the last is the
+kernel summary {"kernels": [...]}; the last line is {"ok": true,
+"device": {...}}. Any failure raises and exits nonzero.
 """
 
 import contextlib
@@ -304,6 +340,8 @@ GREEDY_LARGE_N = 20_000
 # phase 23's graph: the smallest of bench.py's scale family (ring + 3n
 # chords) whose cascade table passes the 2^27-slot budget (cap 13)
 SCATTER_N = 12_000_000
+# The H100 SXM's device memory rate (bytes/s), for the accumulator's bound
+MEM_BYTES_PER_S = 3.35e12
 # the host's CUDA calls that put work on a stream, counted by --profile
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
@@ -374,6 +412,19 @@ def cuda_ms(fn, reps=20, warmup=3):
     return time_fn(fn, reps=reps, warmup=warmup) * 1e3
 
 
+def cpu_ms(fn, reps=20, warmup=3):
+    """Median host time of ``fn()`` in ms over ``reps`` calls, for CPU
+    tensors."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
 def nvidia_smi_topology():
     """``nvidia-smi topo -m``, line by line."""
     out = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
@@ -430,6 +481,31 @@ def hub_chords_graph(n=100_000, chords=300_000, hubs=(20_000, 10_000, 5_000),
     a = ring_chords_graph(n, chords, seed) + b + b.T
     a.data[:] = 1
     return a.tocsr()
+
+
+def replayed_ms(fn, reps=20, warmup=3):
+    """The card's ms per call of ``fn()`` as the layout step runs it: one
+    CUDA graph of ``reps`` calls, replayed, between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
 
 
 def back_to_back_ms(fn, reps=20, warmup=3):
@@ -724,17 +800,19 @@ def phase_quickstart(grt, bf, kp, label, adj, init, warmup, profile):
     kp.knn_pallas.launches = 0
     bf.knn_binfold.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    pos = emb.run_layout(ITERS, block_size=10)
-    dt = time.perf_counter() - t0
-    seeds = grt.graphem_seed_selection(emb, k=10)
-    launches = kp.knn_pallas.launches
     iters = ITERS + 20
+    with segment_launches(f"{label} quick start", iters) as seg_count:
+        t0 = time.perf_counter()
+        pos = emb.run_layout(ITERS, block_size=10)
+        dt = time.perf_counter() - t0
+        seeds = grt.graphem_seed_selection(emb, k=10)
+    launches = kp.knn_pallas.launches
     emit("quickstart_run", graph=label, iters=ITERS, seconds=dt,
          ms_per_iter=dt / ITERS * 1e3, edges_per_s=emb.n_edges * ITERS / dt,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
          knn_pallas_launches=launches, binfold_launches=bf.knn_binfold.launches,
-         iterations_run=iters, seeds=seeds)
+         segment_sum_launches=seg_count["launches"], iterations_run=iters,
+         seeds=seeds)
     if launches != iters or bf.knn_binfold.launches != 0:
         raise AssertionError(f"{label}: {launches} K2 launches in {iters} "
                              "iterations")
@@ -742,6 +820,7 @@ def phase_quickstart(grt, bf, kp, label, adj, init, warmup, profile):
         raise AssertionError(f"{label}: positions not finite")
     if len(set(seeds)) != 10:
         raise AssertionError(f"{label}: seeds {seeds}")
+    record_step(emb, f"{label} quick start")
 
     torch.cuda.synchronize()
     icc.ic_cascade.launches = 0
@@ -1555,6 +1634,35 @@ def phase_scatter_main(grt, adj, profile):
     return launches
 
 
+# the accumulator's sum and tile sort launches on each layout path (phases
+# 5-7, 11, 15, 17, 18), for the kernel summary
+PATH_SEGMENT_LAUNCHES = []
+PATH_SORT_LAUNCHES = []
+
+
+@contextlib.contextmanager
+def segment_launches(label, iters, per_iter=None):
+    """Zero the accumulator's launch counts, run the block, read them: at
+    least one sum launch per iteration, or exactly ``per_iter`` per
+    iteration where given, and one tile sort per iteration. Yields a dict
+    that receives 'launches' (the sum's) and 'sort_launches'."""
+    from graphem_rapids_torch.ops import segment as seg
+
+    seg.segment_sum.launches = seg.sort_tiles.launches = 0
+    got = {}
+    yield got
+    got["launches"] = n = seg.segment_sum.launches
+    got["sort_launches"] = n_sort = seg.sort_tiles.launches
+    PATH_SEGMENT_LAUNCHES.append(n)
+    PATH_SORT_LAUNCHES.append(n_sort)
+    want = None if per_iter is None else per_iter * iters
+    if n < iters or (want is not None and n != want) or n_sort != iters:
+        raise AssertionError(
+            f"{label}: {n} accumulator sums and {n_sort} tile sorts in "
+            f"{iters} iterations, want "
+            f"{want if want is not None else '>= ' + str(iters)} and {iters}")
+
+
 @contextlib.contextmanager
 def setup_split():
     """Seconds of GraphEmbedderTorch's set-up stages inside: the edge
@@ -1609,7 +1717,8 @@ def phase_main(grt, bf, label, adj, expect_table, init, warmup, profile,
                log, checked, **engine_kw):
     """Phases 5/6 (and 18 with ref_order='slot'): construct, warm up (the
     first iteration, then the capture of the replayed graph), then the
-    timed run_layout."""
+    timed run_layout. Returns the run for phase 24: its K1 launches, its
+    engine's options, its start and its positions after ``iters``."""
     from graphem_rapids_torch import native as fg
 
     for fn in fg.NATIVE:
@@ -1623,6 +1732,7 @@ def phase_main(grt, bf, label, adj, expect_table, init, warmup, profile,
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
     split["other_s"] = init_s - sum(split.values())
+    start = emb.positions
     calls = helper_calls(fg)
     device_tier = init == "chebyshev" or (init == "auto"
                                           and emb.n >= 500_000)
@@ -1644,21 +1754,26 @@ def phase_main(grt, bf, label, adj, expect_table, init, warmup, profile,
     if emb._strategy != "binfold" or not emb._fused_refs_active:
         raise AssertionError(f"{label}: main path must take fused binfold")
     # the capture's K1 shapes are the replayed ones: record from warm-up on
+    # the accumulator: the intersection repulsion, and the hub block plan
+    per_iter = 1 + (emb._ops["ov_plan"] is not None) + (
+        emb._ops["nb_overflow"] is not None)
     with k1_shapes(bf, checked, label) as shapes:
         emb.run_layout(warmup, block_size=warmup)
         if emb._graph is None:
             raise AssertionError(f"{label}: run_layout did not capture")
         bf.knn_binfold.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        pos = emb.run_layout(ITERS, block_size=10)
-        dt = time.perf_counter() - t0
+        with segment_launches(label, ITERS, per_iter) as seg_count:
+            t0 = time.perf_counter()
+            pos = emb.run_layout(ITERS, block_size=10)
+            dt = time.perf_counter() - t0
         launches = bf.knn_binfold.launches
     std = pos.std(axis=0, ddof=1)
     emit("main_run", graph=label, ref_order=emb.ref_order, iters=ITERS,
          binfold_shapes=sorted(shapes), seconds=dt,
          ms_per_iter=dt / ITERS * 1e3, edges_per_s=emb.n_edges * ITERS / dt,
          binfold_launches=launches,
+         segment_sum_launches=seg_count["launches"],
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
          # the graph's pool holds the step's temporaries between replays
          reserved_gib=torch.cuda.memory_reserved() / 2**30,
@@ -1670,13 +1785,17 @@ def phase_main(grt, bf, label, adj, expect_table, init, warmup, profile,
         raise AssertionError(f"{label}: positions not finite")
     if not np.allclose(std, 1.0, atol=1e-3):
         raise AssertionError(f"{label}: per-axis std {std} is not ~1")
+    run = dict(label=label, adj=adj, init=init, engine_kw=engine_kw,
+               iters=warmup + ITERS, start=start, end=pos,
+               launches=launches)
     if profile:
         profile_steps(emb, label, dt / ITERS * 1e3)
-    return launches
+    return run
 
 
 def phase_card_vs_cpu(grt, strategy, ref_order="row"):
-    """Phase 9: the same injected-sample steps on the card and the CPU."""
+    """Phase 9: the same injected-sample steps on the card and the CPU.
+    Returns the card's positions and the max abs error."""
     adj = regular_union_graph(2000, cycles=3, seed=1)
     kw = dict(n_components=3, seed=0, verbose=False, init="scipy",
               knn_strategy=strategy, ref_order=ref_order, **FORCE_PARAMS)
@@ -1697,6 +1816,280 @@ def phase_card_vs_cpu(grt, strategy, ref_order="row"):
     if not ok or gpu._strategy != strategy:
         raise AssertionError(f"card and CPU trajectories disagree ({strategy}"
                              f", {ref_order})")
+    return a, err
+
+
+def max_diff(a, b):
+    """Largest |a - b| over two arrays of one shape (0.0 when equal)."""
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def seeded_twin(grt, run, resume_at=25):
+    """A second engine of ``run``'s seed and options (``run`` as phase_main
+    returns it): its start, and its positions after the run's iterations,
+    against the run's; its checkpoint after ``resume_at`` replayed
+    iterations, loaded into a third engine and run ``resume_at`` more,
+    against its own positions after 2 * ``resume_at``, which are also held
+    against the run's ``mid`` where it has one. Returns (the row of max
+    abs differences and bit-equalities, the twin engine)."""
+    kw = dict(n_components=3, seed=0, verbose=False, **FORCE_PARAMS,
+              **run["engine_kw"])
+    twin = grt.GraphEmbedderTorch(run["adj"], init=run["init"], **kw)
+    start = twin.positions
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt.npz")
+        twin.run_layout(resume_at, block_size=resume_at)
+        twin.save_checkpoint(ckpt)
+        straight = twin.run_layout(resume_at, block_size=resume_at)
+        # the start is the checkpoint's: a random init costs nothing
+        resumed = grt.GraphEmbedderTorch(run["adj"], init="random", **kw)
+        resumed.load_checkpoint(ckpt)
+        back = resumed.run_layout(resume_at, block_size=resume_at)
+        del resumed
+    end = twin.run_layout(run["iters"] - 2 * resume_at, block_size=10)
+    row = dict(graph=run["label"], n=twin.n, E=twin.n_edges,
+               table=twin.table_kind, init=run["init"], iters=run["iters"],
+               start_bit_equal=bool(np.array_equal(start, run["start"])),
+               start_max_diff=max_diff(start, run["start"]),
+               end_bit_equal=bool(np.array_equal(end, run["end"])),
+               end_max_diff=max_diff(end, run["end"]),
+               resume_at=resume_at,
+               resume_bit_equal=bool(np.array_equal(back, straight)),
+               resume_max_diff=max_diff(back, straight))
+    if "mid" in run:
+        row.update(mid_iters=2 * resume_at,
+                   mid_bit_equal=bool(np.array_equal(straight, run["mid"])),
+                   mid_max_diff=max_diff(straight, run["mid"]))
+    return row, twin
+
+
+# the accumulator calls of one eager step of each layout path, for
+# phase 25: (path, 'dynamic' or 'static', out, ids or keys, values, perm)
+RECORDED_SUMS = []
+
+
+@contextlib.contextmanager
+def recorded_sums():
+    """Record every accumulator call of the step ops and the sharded step
+    (copies of its inputs) while the block runs: ('dynamic' or 'static',
+    out, ids or keys, values, perm)."""
+    from graphem_rapids_torch.ops import forces
+    from graphem_rapids_torch.parallel import sharded_step
+
+    calls = []
+    dynamic, static = forces.segment_sum, forces.segment_sum_sorted
+    modules = (forces, sharded_step)
+
+    def dyn(out, ids, values):
+        calls.append(("dynamic", out.clone(), ids.clone(), values.clone(),
+                      None))
+        return dynamic(out, ids, values)
+
+    def sta(out, keys, values, perm=None):
+        calls.append(("static", out.clone(), keys.clone(), values.clone(),
+                      None if perm is None else perm.clone()))
+        return static(out, keys, values, perm)
+
+    for m in modules:
+        m.segment_sum, m.segment_sum_sorted = dyn, sta
+    try:
+        yield calls
+    finally:
+        for m in modules:
+            m.segment_sum, m.segment_sum_sorted = dynamic, static
+
+
+def record_step(emb, label):
+    """Record the accumulator calls of one eager step of ``emb`` (a fixed
+    sample; the engine's positions are left as they are) into
+    RECORDED_SUMS under ``label``."""
+    sample = np.random.default_rng(0).permutation(
+        emb.n_edges)[:emb.sample_size]
+    with recorded_sums() as got:
+        emb._raw_step(emb._positions, torch.as_tensor(
+            sample, device=emb.device).to(torch.int32))
+    if not any(kind == "dynamic" for kind, *_ in got):
+        raise AssertionError(f"{label}: no dynamic accumulator call in a "
+                             "step")
+    RECORDED_SUMS.extend((label, *c) for c in got)
+
+
+def phase_determinism(grt, runs, card9):
+    """Phase 24: each main-path run's seeded twin and resumed engine
+    (seeded_twin), and phase 9's 'pallas' case again against ``card9``
+    (its first run's card positions and max_abs_err). Records the
+    accumulator calls of one step of each twin, for phase 25."""
+    for run in runs:
+        row, twin = seeded_twin(grt, run)
+        emit("determinism", **row)
+        if not (row["start_bit_equal"] and row["end_bit_equal"]
+                and row["resume_bit_equal"]):
+            raise AssertionError(f"{run['label']}: one seed, two layouts: "
+                                 f"{row}")
+        record_step(twin, run["label"])
+        del twin
+    pos, err = phase_card_vs_cpu(grt, "pallas")
+    row = dict(strategy="pallas", positions_bit_equal=bool(
+        np.array_equal(pos, card9[0])), max_abs_err=err,
+        first_max_abs_err=card9[1],
+        positions_max_diff=max_diff(pos, card9[0]))
+    emit("determinism_card_vs_cpu", **row)
+    if not (row["positions_bit_equal"] and err == card9[1]):
+        raise AssertionError(f"phase 9 'pallas' twice: {row}")
+
+
+def phase_kernel_segment(seg, calls, mem_bytes_per_s, fp32_instr_per_s):
+    """Phase 25: the accumulator's sum and tile sort against their plain
+    versions on the CPU, on the calls recorded from every layout path.
+    Returns the kernel summaries of the sum and of the tile sort: the
+    times of the first dynamic call recorded (the intersection repulsion's
+    30,720 terms into 100K rows), the largest error over every call."""
+    summary = sort_summary = None
+    sum_err = sort_err = 0.0
+    for label, kind, out, ids, values, perm in calls:
+        def kernel(o):
+            if kind == "dynamic":
+                return seg.segment_sum(o, ids, values)
+            return seg.segment_sum_sorted(o, ids, values, perm)
+
+        out_c, ids_c, values_c = out.cpu(), ids.cpu(), values.cpu()
+        perm_c = None if perm is None else perm.cpu()
+        want = seg.segment_sum_reference(out_c.clone(), ids_c, values_c,
+                                         perm_c)
+        before = seg.segment_sum.launches, seg.sort_tiles.launches
+        a, b = kernel(out.clone()), kernel(out.clone())
+        launches = seg.segment_sum.launches - before[0]
+        sort_launches = seg.sort_tiles.launches - before[1]
+        a, b = a.cpu(), b.cpu()
+        err = float((a - want).abs().max()) if want.numel() else 0.0
+        sum_err = max(sum_err, err)
+        bit_equal = bool(torch.equal(a, want) and torch.equal(a, b))
+        # in place on a scratch copy: the sums grow, which costs no time
+        o, o_c = out.clone(), out_c.clone()
+        ms = cuda_ms(lambda: kernel(o))
+        b2b = back_to_back_ms(lambda: kernel(o))
+        replayed = replayed_ms(lambda: kernel(o))
+
+        def library():
+            return o.index_add_(0, ids, values if perm is None
+                                else values[perm])
+
+        # the plain version is the CPU's index_add_, on the CPU's copies
+        plain_ms = cpu_ms(lambda: seg.segment_sum_reference(
+            o_c, ids_c, values_c, perm_c))
+        library_ms = cuda_ms(library)
+        library_replayed = replayed_ms(library)
+        # the plain-torch form the kernel's was weighed against
+        rows = out.shape[0]
+        offsets_at = torch.arange(rows + 1, dtype=torch.int32,
+                                  device=out.device)
+
+        def reduce_form():
+            keys, order = torch.sort(ids.to(torch.int32), stable=True)
+            offsets = torch.searchsorted(keys, offsets_at)
+            src = values if perm is None else values[perm]
+            return torch.segment_reduce(src[order].reshape(len(ids), -1),
+                                        "sum", offsets=offsets, unsafe=True)
+
+        reduce_ms = cuda_ms(reduce_form)
+        reduce_replayed = replayed_ms(reduce_form)
+        reduce_equal = bool(torch.equal(
+            out.cpu() + reduce_form().reshape(out.shape).cpu(), want)) \
+            if not out.any() else None
+        fields, sort_equal = {}, True
+        if kind == "dynamic":
+            keys, order, T, L, mask = seg.sort_tiles(ids, rows)
+            ref = seg.sort_tiles_reference(ids_c, rows)
+            got_sort = (keys.cpu(), order.cpu(),
+                        None if mask is None else mask.cpu())
+            want_sort = (ref[0], ref[1], ref[4])
+            err_s = 0.0 if (T, L) == ref[2:4] else float("inf")
+            for x, y in zip(got_sort, want_sort):
+                if (x is None) != (y is None) or (
+                        x is not None and x.shape != y.shape):
+                    err_s = float("inf")
+                elif x is not None and x.numel():
+                    err_s = max(err_s, float(
+                        (x.double() - y.double()).abs().max()))
+            sort_equal = err_s == 0.0
+            sort_err = max(sort_err, err_s)
+            padded = torch.full((T * L,), seg.PAD_KEY, dtype=torch.int32,
+                                device=ids.device)
+            padded[:len(ids)] = ids.to(torch.int32)
+
+            def sort_library():
+                return torch.sort(padded.view(T, L), dim=1, stable=True)
+
+            W = seg.mask_words(T) if T > 1 else 0
+            mask_words_set = (int((mask != 0).sum()) if mask is not None
+                              else 0)
+            sort_bytes = (ids.numel() * ids.element_size() + T * L * (4 + 8)
+                          + mask_words_set * 8)
+            # a bitonic sort of 1,024 slots: 55 compare-exchange stages
+            sort_ops = T * seg.TILE * 55
+            sort_bound_bytes = sort_bytes / mem_bytes_per_s * 1e3
+            sort_bound_ops = sort_ops / fp32_instr_per_s * 1e3
+            sort_bound = max(sort_bound_bytes, sort_bound_ops)
+            sort_by = ("bytes" if sort_bound_bytes >= sort_bound_ops
+                       else "operations")
+            fields = dict(
+                tiles=T, tile_len=L, mask_words=W,
+                sort_bit_equal_plain=sort_equal, sort_launches=sort_launches,
+                sort_kernel_ms=cuda_ms(lambda: seg.sort_tiles(ids, rows)),
+                sort_back_to_back_ms=back_to_back_ms(
+                    lambda: seg.sort_tiles(ids, rows)),
+                sort_replayed_ms=replayed_ms(
+                    lambda: seg.sort_tiles(ids, rows)),
+                sort_plain_ms=cpu_ms(
+                    lambda: seg.sort_tiles_reference(ids_c, rows)),
+                sort_library_ms=cuda_ms(sort_library),
+                sort_io_bytes=sort_bytes, sort_compare_exchanges=sort_ops,
+                sort_bound_ms=sort_bound, sort_bound_by=sort_by,
+                sum_replayed_ms=replayed_ms(
+                    lambda: seg.segment_sum_cuda(o, keys, values, order,
+                                                 tiles=T, mask=mask)))
+        touched = int(np.unique(ids_c.numpy()).size)
+        d = out.shape[1] if out.ndim == 2 else 1
+        io_bytes = (ids.numel() * ids.element_size()
+                    + (0 if perm is None else perm.numel() * 8)
+                    + values.numel() * 4 + 2 * touched * d * 4)
+        bound = io_bytes / mem_bytes_per_s * 1e3
+        emit("kernel_segment_sum", path=label, form=kind, terms=len(ids),
+             rows=rows, d=d, touched_rows=touched, launches=launches,
+             bit_equal_cpu_index_add=bit_equal, max_abs_err=err,
+             kernel_ms=ms, back_to_back_ms=b2b, replayed_ms=replayed,
+             plain_ms=plain_ms, library_ms=library_ms,
+             library_replayed_ms=library_replayed,
+             segment_reduce_ms=reduce_ms,
+             segment_reduce_replayed_ms=reduce_replayed,
+             segment_reduce_bit_equal=reduce_equal, io_bytes=io_bytes,
+             bound_ms=bound, bound_by="bytes", **fields)
+        want_sorts = 2 if kind == "dynamic" else 0
+        if not (bit_equal and sort_equal) or launches != 2 \
+                or sort_launches != want_sorts:
+            raise AssertionError(
+                f"segment_sum {label} {kind}: not bit-equal to the CPU's "
+                f"index_add_ (err {err}) or its tile sort not equal to its "
+                f"plain version ({sort_equal}), or {launches} sums and "
+                f"{sort_launches} sorts for 2 calls")
+        if summary is None and kind == "dynamic":
+            summary = dict(ms=ms, back_to_back_ms=b2b, replayed_ms=replayed,
+                           plain_ms=plain_ms, bound_ms=bound,
+                           bound_by="bytes", library_ms=library_ms)
+            sort_summary = dict(
+                ms=fields["sort_kernel_ms"],
+                back_to_back_ms=fields["sort_back_to_back_ms"],
+                replayed_ms=fields["sort_replayed_ms"],
+                plain_ms=fields["sort_plain_ms"], bound_ms=sort_bound,
+                bound_by=sort_by, library_ms=fields["sort_library_ms"])
+    if summary is None:
+        raise AssertionError("segment_sum: no dynamic call was recorded")
+    paths = sorted({label for label, *_ in calls})
+    emit("kernel_segment_sum_paths", paths=paths, calls=len(calls),
+         max_abs_err=sum_err, sort_max_abs_err=sort_err)
+    return dict(max_abs_err=sum_err, **summary), \
+        dict(max_abs_err=sort_err, **sort_summary)
 
 
 def eager_steps(emb, n):
@@ -1713,27 +2106,23 @@ def eager_steps(emb, n):
 def phase_graph_vs_eager(grt, label, adj, iters=5, **engine_kw):
     """Phase 16: ``iters`` replayed iterations against as many eager ones
     from the same generator state and the same start, both engines on the
-    card, in deterministic mode (as phase 12): bit-equal samples every
-    iteration and bit-equal positions."""
+    card, with their own sums: bit-equal samples every iteration and
+    bit-equal positions."""
     kw = dict(n_components=3, seed=0, verbose=False, init="random",
               **FORCE_PARAMS, **engine_kw)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        replayed = grt.GraphEmbedderTorch(adj, device="cuda", **kw)
-        eager = grt.GraphEmbedderTorch(adj, device="cuda", **kw)
-        replayed.run_layout(1)  # the eager first iteration, then the capture
-        eager_steps(eager, 1)
-        samples_equal, positions_equal, err = True, True, 0.0
-        for _ in range(iters):
-            replayed.run_layout(1)
-            sample = eager_steps(eager, 1)[0]
-            samples_equal &= bool(np.array_equal(
-                replayed._graph_sample.cpu().numpy(), sample))
-            a, b = replayed.positions, eager.positions
-            positions_equal &= bool(np.array_equal(a, b))
-            err = max(err, float(np.abs(a - b).max()))
-    finally:
-        torch.use_deterministic_algorithms(False)
+    replayed = grt.GraphEmbedderTorch(adj, device="cuda", **kw)
+    eager = grt.GraphEmbedderTorch(adj, device="cuda", **kw)
+    replayed.run_layout(1)  # the eager first iteration, then the capture
+    eager_steps(eager, 1)
+    samples_equal, positions_equal, err = True, True, 0.0
+    for _ in range(iters):
+        replayed.run_layout(1)
+        sample = eager_steps(eager, 1)[0]
+        samples_equal &= bool(np.array_equal(
+            replayed._graph_sample.cpu().numpy(), sample))
+        a, b = replayed.positions, eager.positions
+        positions_equal &= bool(np.array_equal(a, b))
+        err = max(err, float(np.abs(a - b).max()))
     emit("graph_vs_eager", graph=label, n=replayed.n, E=replayed.n_edges,
          strategy=replayed._strategy, captured=replayed._graph is not None,
          iters=iters, samples_bit_equal=samples_equal,
@@ -1752,29 +2141,25 @@ def phase_sharded_graph_vs_eager(grt, label, adj, knn_comm, ref_order="row",
     each, ``iters`` iterations of run_layout (graph replay: the sample and
     the sharded step with every collective, captured once) against as many
     of the eager loop from the same generator state and start, both on the
-    card, in deterministic mode: samples and positions bit-equal every
+    card, with their own sums: samples and positions bit-equal every
     iteration. Returns the row it prints."""
     kw = dict(n_components=3, seed=0, verbose=False, init="random",
               knn_comm=knn_comm, ref_order=ref_order, **FORCE_PARAMS)
     if mesh is None:
         mesh = grt.default_mesh()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        replayed = grt.ShardedGraphEmbedder(adj, mesh=mesh, **kw)
-        eager = grt.ShardedGraphEmbedder(adj, mesh=mesh, **kw)
-        replayed.run_layout(1)  # the eager first iteration, then the capture
-        eager_steps(eager, 1)
-        samples_equal, positions_equal, err = True, True, 0.0
-        for _ in range(iters):
-            replayed.run_layout(1)
-            sample = eager_steps(eager, 1)[0]
-            samples_equal &= bool(np.array_equal(
-                replayed._graph_sample.cpu().numpy(), sample))
-            a, b = replayed.positions, eager.positions
-            positions_equal &= bool(np.array_equal(a, b))
-            err = max(err, float(np.abs(a - b).max()))
-    finally:
-        torch.use_deterministic_algorithms(False)
+    replayed = grt.ShardedGraphEmbedder(adj, mesh=mesh, **kw)
+    eager = grt.ShardedGraphEmbedder(adj, mesh=mesh, **kw)
+    replayed.run_layout(1)  # the eager first iteration, then the capture
+    eager_steps(eager, 1)
+    samples_equal, positions_equal, err = True, True, 0.0
+    for _ in range(iters):
+        replayed.run_layout(1)
+        sample = eager_steps(eager, 1)[0]
+        samples_equal &= bool(np.array_equal(
+            replayed._graph_sample.cpu().numpy(), sample))
+        a, b = replayed.positions, eager.positions
+        positions_equal &= bool(np.array_equal(a, b))
+        err = max(err, float(np.abs(a - b).max()))
     row = dict(graph=label, knn_comm=knn_comm, ref_order=ref_order,
                ranks=mesh.world_size, n=replayed.n, E=replayed.n_edges,
                table=replayed.table_kind,
@@ -1842,9 +2227,10 @@ def phase_approx(grt, bf, kp, label, adj, init, warmup):
     torch.cuda.reset_peak_memory_stats()
     emb.run_layout(warmup, block_size=warmup)
     bf.knn_binfold.launches = kp.knn_pallas.launches = 0
-    t0 = time.perf_counter()
-    pos = emb.run_layout(ITERS, block_size=10)
-    dt = time.perf_counter() - t0
+    with segment_launches(f"{label} approx", ITERS) as seg_count:
+        t0 = time.perf_counter()
+        pos = emb.run_layout(ITERS, block_size=10)
+        dt = time.perf_counter() - t0
     k1, k2 = bf.knn_binfold.launches, kp.knn_pallas.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     reserved = torch.cuda.memory_reserved() / 2**30
@@ -1871,13 +2257,15 @@ def phase_approx(grt, bf, kp, label, adj, init, warmup):
          ms_per_iter=dt / ITERS * 1e3, edges_per_s=emb.n_edges * ITERS / dt,
          peak_mem_gib=peak, reserved_gib=reserved,
          oneshot_peak_factor=factor,
-         binfold_launches=k1, pallas_launches=k2, k=k,
+         binfold_launches=k1, pallas_launches=k2,
+         segment_sum_launches=seg_count["launches"], k=k,
          recall_vs_exact=recall,
          distances_equal_exact=bool(torch.equal(av, ev)),
          finite=bool(np.isfinite(pos).all()), std=std.tolist())
     if (k1, k2) != (0, 0):
         raise AssertionError(f"{label}: approx launched K1 {k1} / K2 {k2} "
                              "times")
+    record_step(emb, f"{label} approx")
     if recall != 1.0:
         raise AssertionError(f"{label}: approx recall {recall} against "
                              "knn_exact")
@@ -2265,9 +2653,10 @@ def phase_sharded(grt, bf, rb, label, adj, init, warmup, profile, log,
     rb.ring_fold.launches = 0
     bf.knn_binfold.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    pos = emb.run_layout(ITERS, block_size=10)
-    dt = time.perf_counter() - t0
+    with segment_launches(f"{label} sharded {knn_comm}", ITERS) as seg_count:
+        t0 = time.perf_counter()
+        pos = emb.run_layout(ITERS, block_size=10)
+        dt = time.perf_counter() - t0
     ring, k1 = rb.ring_fold.launches, bf.knn_binfold.launches
     std = pos.std(axis=0, ddof=1)
     emit("sharded_run", graph=label, knn_comm=knn_comm, ref_order=ref_order,
@@ -2276,6 +2665,7 @@ def phase_sharded(grt, bf, rb, label, adj, init, warmup, profile, log,
          edges_per_s=emb.n_edges * ITERS / dt,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
          ring_binfold_launches=ring, binfold_launches=k1,
+         segment_sum_launches=seg_count["launches"],
          finite=bool(np.isfinite(pos).all()), std=std.tolist())
     # one K3 launch per iteration runs every hop of the ring
     want = (ITERS, 0) if knn_comm == "ring_pallas" else (0, ITERS)
@@ -2288,6 +2678,7 @@ def phase_sharded(grt, bf, rb, label, adj, init, warmup, profile, log,
         raise AssertionError(f"{label}: per-axis std {std} is not ~1")
     if emb._graph is None:
         raise AssertionError(f"{label}: the sharded step must replay a graph")
+    record_step(emb, f"{label} sharded {knn_comm} {ref_order}")
     if profile:
         profile_steps(emb, f"{label}_sharded_{knn_comm}_{ref_order}",
                       dt / ITERS * 1e3)
@@ -2296,18 +2687,7 @@ def phase_sharded(grt, bf, rb, label, adj, init, warmup, profile, log,
 
 def phase_sharded_vs_single(grt):
     """Phase 12: the one-rank 'ring_pallas' step against the single-card
-    'binfold' engine, both on the card, in deterministic mode: index_add_'s
-    atomics sum in a varying order otherwise, and after a few steps that
-    noise alone can flip an intersection test between two runs of the same
-    engine."""
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        _sharded_vs_single(grt)
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
-def _sharded_vs_single(grt):
+    'binfold' engine, both on the card, with the engines' own sums."""
     adj = regular_union_graph(2000, cycles=3, seed=1)
     kw = dict(n_components=3, seed=0, verbose=False, init="scipy",
               **FORCE_PARAMS)
@@ -2416,7 +2796,8 @@ def phase_toolkit(grt, bf, log, checked):
 
     params = TOOLKIT_PARAMS
     bf.knn_binfold.launches = 0
-    with k1_shapes(bf, checked, "toolkit") as shapes:
+    with k1_shapes(bf, checked, "toolkit") as shapes, \
+            segment_launches("toolkit", 40) as seg_count:
         res = grt.run_benchmark(grt.generate_ba, params,
                                 compute_centrality=False, seed=0)
     launches = bf.knn_binfold.launches
@@ -2441,6 +2822,7 @@ def phase_toolkit(grt, bf, log, checked):
     emit("toolkit", benchmark="run_benchmark(generate_ba)", **params,
          m_edges=res["m"], layout_time=res["layout_time"],
          edges_per_second=res["edges_per_second"], binfold_launches=launches,
+         segment_sum_launches=seg_count["launches"],
          binfold_shapes=sorted(shapes),
          spearman_radius_degree=rho, finite=finite,
          karate_n=adj.shape[0], karate_device=str(emb.device),
@@ -2451,6 +2833,7 @@ def phase_toolkit(grt, bf, log, checked):
     if emb.device.type != "cuda" or not np.isfinite(pos).all() \
             or rho_karate <= 0.4:
         raise AssertionError(f"karate: Spearman {rho_karate} (> 0.4 wanted)")
+    record_step(emb, "karate")
     return launches
 
 
@@ -2750,6 +3133,7 @@ def main(argv):
     from graphem_rapids_torch import _build
     from graphem_rapids_torch.ops import knn_binfold as bf
     from graphem_rapids_torch.ops import knn_pallas as kp
+    from graphem_rapids_torch.ops import segment as seg
     from graphem_rapids_torch.ops.knn import knn_exact
     from graphem_rapids_torch.parallel import ring_binfold as rb
     from graphem_rapids_torch.parallel.sharded_step import KNN_COMMS
@@ -2804,12 +3188,13 @@ def main(argv):
         ("hub_chords_100k", hub_chords_graph(), "block_plan"),
         ("random_8_regular_100k", adj100k, "span"),
     ])
-    launches = phase_main(grt, bf, "random_8_regular_100k", adj100k, "flat",
-                          "auto", warmup=10, profile=profile, log=log,
-                          checked=k1["checked"])
-    launches += phase_main(grt, bf, "ring_chords_1m", adj1m,
-                           "binned+overflow plan", "auto", warmup=5,
-                           profile=profile, log=log, checked=k1["checked"])
+    runs = [phase_main(grt, bf, "random_8_regular_100k", adj100k, "flat",
+                       "auto", warmup=10, profile=profile, log=log,
+                       checked=k1["checked"]),
+            phase_main(grt, bf, "ring_chords_1m", adj1m,
+                       "binned+overflow plan", "auto", warmup=5,
+                       profile=profile, log=log, checked=k1["checked"])]
+    launches = sum(run["launches"] for run in runs)
     k2_launches, ic_launches = phase_quickstart(
         grt, bf, kp, "random_8_regular_100k", adj100k, "auto", warmup=5,
         profile=profile)
@@ -2819,9 +3204,12 @@ def main(argv):
     greedy_ic, greedy_scatter = phase_greedy(grt)
     ic_launches += ic_1m + greedy_ic
     scatter_launches += greedy_scatter
-    for strategy in ("binfold", "pallas", "approx"):
-        phase_card_vs_cpu(grt, strategy)
+    card9 = {strategy: phase_card_vs_cpu(grt, strategy)
+             for strategy in ("binfold", "pallas", "approx")}
     phase_card_vs_cpu(grt, "binfold", ref_order="slot")
+    phase_determinism(grt, runs, card9["pallas"])
+    log.take("determinism")  # the twins' Chebyshev records
+    del runs
     phase_graph_vs_eager(grt, "regular_2000", regular_union_graph(
         2000, cycles=3, seed=1), knn_strategy="binfold")
     phase_graph_vs_eager(grt, "random_8_regular_100k", adj100k)
@@ -2829,7 +3217,8 @@ def main(argv):
     phase_approx(grt, bf, kp, "ring_chords_1m", adj1m, "random", 3)
     launches += phase_main(grt, bf, "random_8_regular_100k_slot", adj100k,
                            "flat", "random", warmup=5, profile=profile,
-                           log=log, checked=k1["checked"], ref_order="slot")
+                           log=log, checked=k1["checked"],
+                           ref_order="slot")["launches"]
 
     with tempfile.TemporaryDirectory() as tmp:
         grt.distributed_init(backend="nccl", init_method=f"file://{tmp}/store",
@@ -2870,6 +3259,9 @@ def main(argv):
             # it at exit
             dist.destroy_process_group()
     launches += phase_toolkit(grt, bf, log, k1["checked"])
+    seg_summary, sort_summary = phase_kernel_segment(
+        seg, RECORDED_SUMS, MEM_BYTES_PER_S, fp32_instr_per_s)
+    RECORDED_SUMS.clear()
     phase_multi_card(profile=profile)
     log.take("smoke run")
 
@@ -2938,6 +3330,20 @@ def main(argv):
         "bound_ms": scatter["bound_ms"],
         "bound_by": scatter["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "segment_sum",
+        "route": "cuda",
+        "source": "graphem_rapids_torch/csrc/segment_sum.cu",
+        "replaces": "graphem_rapids_tpu/ops/forces.py:1210",
+        "launches": sum(PATH_SEGMENT_LAUNCHES),
+        **seg_summary,
+    }, {
+        "name": "segment_sort_tiles",
+        "route": "cuda",
+        "source": "graphem_rapids_torch/csrc/segment_sum.cu",
+        "replaces": "graphem_rapids_tpu/ops/forces.py:1210",
+        "launches": sum(PATH_SORT_LAUNCHES),
+        **sort_summary,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

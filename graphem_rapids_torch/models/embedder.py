@@ -47,16 +47,19 @@ from ..ops.forces import (
 from ..ops.knn import EXACT_MAX_REFS, knn, oneshot_budget_bytes
 from ..ops.laplacian import spectral_init
 from ..ops.sampling import sample_indices
+from ..ops.segment import segment_sum, sort_tiles
 from ..utils.memory_management import get_optimal_chunk_size
 
 logger = logging.getLogger(__name__)
 
 EPS = 1e-6
 
-# The kernel wrappers whose ``launches`` count launches on the card: K1 and
-# K2, the kernels a single-card step can launch. A replay launches what
-# the capture recorded, so the engine adds the capture's count per replay.
-_COUNTED_KERNELS = (bf.knn_binfold, kp.knn_pallas)
+# The kernel wrappers whose ``launches`` count launches on the card: K1,
+# K2 and the force accumulator's sum and tile sort, the kernels a
+# single-card step can launch.
+# A replay launches what the capture recorded, so the engine adds the
+# capture's count per replay.
+_COUNTED_KERNELS = (bf.knn_binfold, kp.knn_pallas, segment_sum, sort_tiles)
 
 
 def resolve_device(device):

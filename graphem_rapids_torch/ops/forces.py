@@ -14,9 +14,12 @@ Every sort below is stable, so the tables are identical to the JAX ones.
 ``native=False`` runs the helpers' plain numpy versions instead; both give
 the same arrays, dtypes included.
 
-Step ops (torch): ``index_add_`` takes the place of JAX's ``segment_sum``
-and ``.at[].add``. On CUDA its summation order is not deterministic, so
-results agree with the JAX package to a tolerance, not bitwise.
+Step ops (torch): the accumulator of ``ops/segment.py`` takes the place of
+JAX's ``segment_sum`` and ``.at[].add``. It adds each row's terms in
+ascending contribution order, as ``index_add_`` does on the CPU, so a
+card's results are the same on every run and bit-equal to the CPU's on the
+same inputs. They agree with the JAX package to a tolerance, as XLA sums in
+another order.
 """
 
 import numpy as np
@@ -24,6 +27,7 @@ import torch
 
 from .. import native as fg
 from .intersect import segments_intersect_2d
+from .segment import segment_sum, segment_sum_sorted
 
 EPS = 1e-6
 
@@ -500,19 +504,22 @@ def apply_overflow_plan(forces, positions, plan, k_attr, L_min):
     blk = fo.reshape(-1, plan["block"], fo.shape[-1]).sum(dim=1)
     hub = torch.zeros((plan["hub_ids"].shape[0], fo.shape[-1]),
                       dtype=fo.dtype, device=fo.device)
-    hub.index_add_(0, plan["block_hub"], blk)
+    segment_sum_sorted(hub, plan["block_hub"], blk)  # block_hub ascending
+    # hub_ids are distinct: one term per row, no order to fix
     return forces.index_add(0, plan["hub_ids"], hub)
 
 
 def _apply_table_overflow(forces, positions, overflow_edges, overflow_plan,
                           k_attr, L_min):
-    """Shared overflow accumulation for the table spring variants."""
+    """Shared overflow accumulation for the table spring variants; adds
+    into ``forces``, which the callers make fresh."""
     if overflow_plan is not None:
         return apply_overflow_plan(forces, positions, overflow_plan,
                                    k_attr, L_min)
     if overflow_edges is not None and overflow_edges.shape[0] > 0:
         fo = _overflow_spring(positions, overflow_edges, k_attr, L_min)
-        return forces.index_add(0, overflow_edges[:, 0], fo)
+        # the table builders sort the COO tail by vertex: rows ascend
+        return segment_sum_sorted(forces, overflow_edges[:, 0], fo)
     return forces
 
 
@@ -674,9 +681,9 @@ def spring_refs_binned_slotwise(positions, tables_t, buckets, k_attr, L_min,
 def build_scatter_plan(edges_np, n, device=None):
     """Sorted scatter plan for spring_forces: 'perm' (2E,) and 'sorted_ids'
     (2E,) int64 tensors on ``device`` (None: the CUDA card) such that
-    ``index_add_(0, sorted_ids, values[perm])`` accumulates the stacked
-    edge forces [f; -f] onto the vertices in ascending vertex order, and
-    the int 'n'. The JAX package's plan, with a stable sort."""
+    ``segment_sum_sorted(out, sorted_ids, values, perm)`` accumulates the
+    stacked edge forces [f; -f] onto the vertices in ascending vertex
+    order, and the int 'n'. The JAX package's plan, with a stable sort."""
     from ..models.embedder import resolve_device
 
     dev = resolve_device(device)
@@ -702,10 +709,10 @@ def spring_forces(positions, edges, k_attr, L_min, scatter_plan=None):
     values = torch.cat([f, -f], dim=0)
     if scatter_plan is not None:
         out = positions.new_zeros((scatter_plan["n"], positions.shape[1]))
-        return out.index_add_(0, scatter_plan["sorted_ids"],
-                              values[scatter_plan["perm"]])
+        return segment_sum_sorted(out, scatter_plan["sorted_ids"], values,
+                                  scatter_plan["perm"])
     ids = torch.cat([edges[:, 0], edges[:, 1]], dim=0)
-    return torch.zeros_like(positions).index_add_(0, ids, values)
+    return segment_sum(torch.zeros_like(positions), ids, values)
 
 
 def _repulsion_terms(positions, edges_i, edges_j, weight, k_inter):
@@ -760,4 +767,4 @@ def intersection_forces(positions, edges, knn_indices, sampled_indices,
                      edges_j[:, 1]])
     out = torch.zeros((n, positions.shape[1]), dtype=positions.dtype,
                       device=positions.device)
-    return out.index_add_(0, ids, vals)
+    return segment_sum(out, ids, vals)

@@ -34,6 +34,7 @@ import torch
 from scipy.sparse.csgraph import laplacian as _csgraph_laplacian
 
 from .forces import _optimal_table_cap, build_overflow_plan
+from .segment import segment_sum_sorted
 
 logger = logging.getLogger(__name__)
 
@@ -72,10 +73,10 @@ def _adjacency_matvec_plan(A, cap=None, device="cpu"):
     the row's own id, gathers copies of the row and subtracts pad_count
     times it, which cancels hundreds of float32 copies on a wide row; its
     arrays equal these once its self-pads are read as n.) Keys: 'table'
-    (n, cap) neighbour ids, 'overflow' (O, 2) COO tail (empty when the block
-    plan takes it), 'ov_plan' the hub block-fold plan or None ('nbr' (O',)
-    neighbour ids, 'block_hub', 'hub_ids', 'block' an int), 'deg' (n,)
-    float32, 'n'.
+    (n, cap) neighbour ids, 'overflow' (O, 2) COO tail, rows ascending
+    (empty when the block plan takes it), 'ov_plan' the hub block-fold plan
+    or None ('nbr' (O',) neighbour ids, 'block_hub', 'hub_ids', 'block' an
+    int), 'deg' (n,) float32, 'n'.
     """
     n = A.shape[0]
     A = A.tocsr()
@@ -123,18 +124,20 @@ def _adjacency_matvec_plan(A, cap=None, device="cpu"):
 def _overflow_correct(AY, Y_ext, plan):
     """Fold the block-plan / COO overflow into the gathered A @ Y, from
     Y_ext = [Y; 0]: dense per-block sums scattered onto the H hub rows, or
-    the COO tail scattered onto its rows."""
+    the COO tail scattered onto its rows, each row's terms in order
+    (``segment_sum_sorted``: the plan's block_hub and COO rows ascend)."""
     ov = plan["ov_plan"]
     if ov is not None:
         s = Y_ext.shape[1]
         blk = Y_ext[ov["nbr"]].reshape(-1, ov["block"], s).sum(dim=1)
         hub = torch.zeros((ov["hub_ids"].shape[0], s), dtype=Y_ext.dtype,
                           device=Y_ext.device)
-        hub.index_add_(0, ov["block_hub"], blk)
+        segment_sum_sorted(hub, ov["block_hub"], blk)
+        # hub_ids are distinct: one term per row, no order to fix
         return AY.index_add_(0, ov["hub_ids"], hub)
     overflow = plan["overflow"]
     if overflow.shape[0] > 0:
-        return AY.index_add_(0, overflow[:, 0], Y_ext[overflow[:, 1]])
+        return segment_sum_sorted(AY, overflow[:, 0], Y_ext[overflow[:, 1]])
     return AY
 
 

@@ -24,13 +24,14 @@ work that scales with E is cut by rank:
   per step runs every hop and stores each carry into the right
   neighbour's memory itself);
 - intersection repulsion and the standardization are replicated; with
-  several ranks, rank 0's new positions are then broadcast, so positions
-  stay bit-equal on every rank (the JAX step needs no broadcast: XLA sums
-  in a fixed order, and CUDA's atomics in index_add_ do not). The largest
-  gap the broadcast closed, relative to the largest |position|, is kept in
-  ``step_ops['replica_gap']``: rounding leaves it a few ulps, while ranks
-  whose replicated inputs differ (another sample, other positions) leave
-  it far above REPLICA_GAP_LIMIT, which ShardedGraphEmbedder enforces.
+  several ranks, rank 0's new positions are then broadcast. Every sum of
+  the step adds in a fixed order (``ops/segment.py``, as XLA does for the
+  JAX step, which needs no broadcast), so ranks that hold the same inputs
+  compute the same bits, and the broadcast changes nothing then. The
+  largest gap it closed, relative to the largest |position|, is kept in
+  ``step_ops['replica_gap']``: 0 for ranks in step, while ranks whose
+  replicated inputs differ (another sample, other positions) leave it far
+  above REPLICA_GAP_LIMIT, which ShardedGraphEmbedder enforces.
 
 Collectives per iteration: one tiled all_gather per spring block (or one
 all_reduce), then for the kNN merge two all_gathers ('all_gather'), one
@@ -68,6 +69,7 @@ from ..ops.forces import (
 )
 from ..ops.knn import knn_chunked, squared_distances
 from ..ops.sampling import sample_indices
+from ..ops.segment import segment_sum, segment_sum_sorted
 from .mesh import EDGE_AXIS
 from .ring_binfold import check_ring_peers, ring_binfold_topk, \
     ring_supported
@@ -82,8 +84,9 @@ LOCAL_CHUNK = 65536
 # The bin-fold local top-k takes tiles of at least this many refs.
 BINFOLD_LOCAL_MIN_REFS = 4096
 # Largest gap between a rank's own positions and rank 0's before the
-# broadcast, relative to the largest |position|: 32 float32 ulps, room for
-# index_add_'s summation order and no more.
+# broadcast, relative to the largest |position|: 32 float32 ulps. Ranks in
+# step leave 0, as every sum of the step adds in a fixed order; ranks whose
+# inputs differ leave far more.
 REPLICA_GAP_LIMIT = 2.0 ** -18
 
 
@@ -487,7 +490,7 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
             vals = torch.cat([f, -f], dim=0)
             ids = torch.cat([edges_loc[:, 0], edges_loc[:, 1]])
             spring = mesh.all_reduce(
-                torch.zeros_like(positions).index_add_(0, ids, vals)
+                segment_sum(torch.zeros_like(positions), ids, vals)
             )
             return spring, None
         if "ov_plan" in ops:
@@ -497,7 +500,8 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
             ovf = ops["nb_overflow"]
             fo = _spring(positions[ovf[:, 1]] - positions[ovf[:, 0]], k_attr,
                          L_min)
-            spring = spring.index_add(0, ovf[:, 0], fo)
+            # the table builders sort the COO tail by vertex: rows ascend
+            spring = segment_sum_sorted(spring, ovf[:, 0], fo)
         return spring, gathered
 
     def ref_tile(positions, ops, gathered, p1, p2, valid_loc):
@@ -708,9 +712,8 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
         std = new_positions.std(dim=0, keepdim=True, unbiased=True) + EPS
         new_positions = new_positions / std
         if n_devices > 1:
-            # index_add_ sums in a varying order on CUDA, so the replicated
-            # update can differ in the last bits between ranks; rank 0's
-            # positions become every rank's, and the gap they closed is kept
+            # rank 0's positions become every rank's, and the gap they
+            # closed is kept: 0 while the ranks' replicated inputs agree
             mine = new_positions.clone()
             mesh.broadcast(new_positions, src=0)
             gap = (mine - new_positions).abs().max() / \

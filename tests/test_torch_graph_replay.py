@@ -4,7 +4,7 @@ On a CUDA device ``GraphEmbedderTorch.run_layout`` runs the first iteration
 eagerly, captures one iteration (the sample from the engine's generator,
 then the step into a static positions buffer) and replays it. These tests
 hold the replayed trajectory against the eager loop from the same generator
-state, bit for bit under ``torch.use_deterministic_algorithms``; the
+state, bit for bit with the engine's own deterministic sums; the
 positions setter and ``load_checkpoint`` under a captured graph; and the
 K1/K2 launch counters, which must count one launch per replayed iteration.
 They need a card (marked ``cuda``) and skip without one:
@@ -49,9 +49,7 @@ def regular_graph(n=2000, cycles=3, seed=1):
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    yield torch.device("cuda")
-    torch.use_deterministic_algorithms(False)
+    return torch.device("cuda")
 
 
 def _eager(emb, n):
