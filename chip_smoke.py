@@ -274,34 +274,49 @@ Phases:
     'pallas' case runs again, and its card positions and max_abs_err must
     equal the first run's. No check switches PyTorch's global determinism
     on;
-25. the accumulator (csrc/segment_sum.cu: the tile sort and the sum)
-    against its plain version, after every other phase: the sums that
-    one eager step of each layout path that launches it asks for,
-    recorded from its engine (the second engine of each main-path graph
-    in phase 24, the quick start's and 'approx''s engines on both graphs,
-    the sharded engines of phase 11 and the karate engine of phase 15):
-    the intersection repulsion's 4*S*k terms of d=3 (30,720 into 100K and
-    1M rows; 'approx''s 98,304 in 96 tiles, a two-word tile mask), the
-    dynamic form, the tile sort and the sum; the 1M block plan's hub
-    blocks, the static form. Each is run twice by the kernel and once by
-    index_add_ on the CPU, bit-equal, and the tile sort's keys, places
-    and masks equal its plain version's (a stable torch.sort of each tile
-    on the CPU); the kernel's time per call, back to back and replayed in
-    a CUDA graph as the layout step runs it (and the tile sort's and the
-    sum's alone, replayed), the plain versions on the CPU, index_add_ and
-    a stable torch.sort of the tiles on the card (the library calls;
-    replayed too), the plain-torch form (a stable torch.sort,
+25. the accumulator (csrc/segment_sum.cu: the cluster kernel, the tile
+    sort and the sum) against its plain versions, after every other phase:
+    the sums that one eager step of each layout path that launches it asks
+    for, recorded from its engine (the second engine of each main-path
+    graph in phase 24, the quick start's and 'approx''s engines on both
+    graphs, the sharded engines of phase 11, the karate engine of phase 15
+    and phase 26's engine), and phase 26's unplanned spring_forces: the
+    intersection repulsion's 4*S*k terms of d=3 (30,720 into 100K and 1M
+    rows, 'approx''s 98,304: the cluster form; 184,320 at sample_size=3072
+    and the spring's 799,968: the tiled form), the 1M block plan's hub
+    blocks (the static form). Each is run twice through segment_sum (or
+    segment_sum_sorted) and once by index_add_ on the CPU, bit-equal, with
+    one cluster launch a cluster-form call and one tile sort and one sum a
+    tiled one; a cluster-form call also equals its plain version (a stable
+    torch.sort of the whole id list, then the ascending loop, on the CPU),
+    and at every dynamic call the tile sort's keys, places and masks equal
+    its plain version's (a stable torch.sort of each tile on the CPU). The
+    times: the form's per call, back to back and replayed in a CUDA graph
+    as the layout step runs it; at every dynamic call the tiled form's
+    (the tile sort and the sum, apart and together, replayed: the form
+    every dynamic call took before the cluster kernel); the plain versions
+    on the CPU; index_add_ on the card, with its float atomics and under
+    torch.use_deterministic_algorithms(True) (a sorted index_put_; the
+    setting restored after the call), per call and replayed, each held
+    against the CPU's bits; the plain-torch form (a stable torch.sort,
     searchsorted offsets, torch.segment_reduce), and the bounds (each id,
-    value and touched row read once and each touched row written once;
-    the sort's ids read, keys, places and touched mask words written,
-    against its compare-exchanges).
+    value and touched row read once and each touched row written once; the
+    sort's ids read, keys, places and touched mask words written, against
+    its compare-exchanges);
+26. the tiled form on a layout path, before phase 25: the 100K graph at
+    sample_size=3072, whose 4*S*k = 184,320 terms pass the cluster's
+    capacity, 20 iterations under replay: one tile sort and one tiled sum
+    an iteration, no cluster launch; one step's calls and the graph's
+    unplanned spring_forces recorded for phase 25.
 
 Each main-path, quick-start, greedy, scatter-path (23), sharded and
 toolkit phase zeroes the kernels' launch counts just before its timed run
 and reads them just after; each layout path also fails unless the
-accumulator's sum ran at least once an iteration (once for the
-intersection repulsion, once more for a hub block plan) and its tile sort
-exactly once an iteration (the intersection repulsion's ids). A handler
+accumulator's cluster kernel ran exactly once an iteration (the
+intersection repulsion's ids) and its tile sort not at all (phase 26: one
+tile sort an iteration and no cluster launch), and the main paths unless
+its sum ran exactly once an iteration for each static plan (a hub block
+plan, the COO overflow tails). A handler
 on the spectral init's logger records every tier-down warning, and a
 phase whose engines logged one fails. The line before the last is the
 kernel summary {"kernels": [...]}; the last line is {"ok": true,
@@ -811,7 +826,9 @@ def phase_quickstart(grt, bf, kp, label, adj, init, warmup, profile):
          ms_per_iter=dt / ITERS * 1e3, edges_per_s=emb.n_edges * ITERS / dt,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
          knn_pallas_launches=launches, binfold_launches=bf.knn_binfold.launches,
-         segment_sum_launches=seg_count["launches"], iterations_run=iters,
+         segment_sum_launches=seg_count["launches"],
+         segment_cluster_launches=seg_count["cluster_launches"],
+         iterations_run=iters,
          seeds=seeds)
     if launches != iters or bf.knn_binfold.launches != 0:
         raise AssertionError(f"{label}: {launches} K2 launches in {iters} "
@@ -1638,29 +1655,40 @@ def phase_scatter_main(grt, adj, profile):
 # 5-7, 11, 15, 17, 18), for the kernel summary
 PATH_SEGMENT_LAUNCHES = []
 PATH_SORT_LAUNCHES = []
+PATH_CLUSTER_LAUNCHES = []
 
 
 @contextlib.contextmanager
-def segment_launches(label, iters, per_iter=None):
-    """Zero the accumulator's launch counts, run the block, read them: at
-    least one sum launch per iteration, or exactly ``per_iter`` per
-    iteration where given, and one tile sort per iteration. Yields a dict
-    that receives 'launches' (the sum's) and 'sort_launches'."""
+def segment_launches(label, iters, static_per_iter=None, form="cluster"):
+    """Zero the accumulator's launch counts, run the block, read them: the
+    step's dynamic sum takes exactly one cluster launch an iteration and no
+    tile sort (``form`` 'cluster', every engine's step up to the cluster's
+    capacity), or one tile sort and one tiled sum an iteration ('tiled');
+    the static form's sums (a hub block plan, the COO overflow tails)
+    exactly ``static_per_iter`` an iteration where given. Yields a dict
+    that receives 'cluster_launches', 'launches' (the tiled and static
+    sum's) and 'sort_launches'."""
     from graphem_rapids_torch.ops import segment as seg
 
+    seg.segment_sum_cluster.launches = 0
     seg.segment_sum.launches = seg.sort_tiles.launches = 0
     got = {}
     yield got
+    got["cluster_launches"] = n_cluster = seg.segment_sum_cluster.launches
     got["launches"] = n = seg.segment_sum.launches
     got["sort_launches"] = n_sort = seg.sort_tiles.launches
+    PATH_CLUSTER_LAUNCHES.append(n_cluster)
     PATH_SEGMENT_LAUNCHES.append(n)
     PATH_SORT_LAUNCHES.append(n_sort)
-    want = None if per_iter is None else per_iter * iters
-    if n < iters or (want is not None and n != want) or n_sort != iters:
+    tiled = iters if form == "tiled" else 0
+    want = (None if static_per_iter is None
+            else static_per_iter * iters + tiled)
+    if (n_cluster != iters - tiled or n_sort != tiled or n < tiled
+            or (want is not None and n != want)):
         raise AssertionError(
-            f"{label}: {n} accumulator sums and {n_sort} tile sorts in "
-            f"{iters} iterations, want "
-            f"{want if want is not None else '>= ' + str(iters)} and {iters}")
+            f"{label}: {n_cluster} cluster launches, {n_sort} tile sorts and "
+            f"{n} sums in {iters} iterations, want {iters - tiled}, {tiled} "
+            f"and {want if want is not None else '>= ' + str(tiled)}")
 
 
 @contextlib.contextmanager
@@ -1754,8 +1782,8 @@ def phase_main(grt, bf, label, adj, expect_table, init, warmup, profile,
     if emb._strategy != "binfold" or not emb._fused_refs_active:
         raise AssertionError(f"{label}: main path must take fused binfold")
     # the capture's K1 shapes are the replayed ones: record from warm-up on
-    # the accumulator: the intersection repulsion, and the hub block plan
-    per_iter = 1 + (emb._ops["ov_plan"] is not None) + (
+    # the accumulator's static sums: the hub block plan, the COO tails
+    per_iter = (emb._ops["ov_plan"] is not None) + (
         emb._ops["nb_overflow"] is not None)
     with k1_shapes(bf, checked, label) as shapes:
         emb.run_layout(warmup, block_size=warmup)
@@ -1774,6 +1802,7 @@ def phase_main(grt, bf, label, adj, expect_table, init, warmup, profile,
          ms_per_iter=dt / ITERS * 1e3, edges_per_s=emb.n_edges * ITERS / dt,
          binfold_launches=launches,
          segment_sum_launches=seg_count["launches"],
+         segment_cluster_launches=seg_count["cluster_launches"],
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
          # the graph's pool holds the step's temporaries between replays
          reserved_gib=torch.cuda.memory_reserved() / 2**30,
@@ -1939,15 +1968,138 @@ def phase_determinism(grt, runs, card9):
         raise AssertionError(f"phase 9 'pallas' twice: {row}")
 
 
+def deterministic(fn):
+    """``fn`` under torch.use_deterministic_algorithms(True), the global
+    setting restored after it: ``index_add_`` on a card then takes the
+    sorted ``index_put_`` instead of float atomics."""
+    def run(*args):
+        was = torch.are_deterministic_algorithms_enabled()
+        warn = torch.is_deterministic_algorithms_warn_only_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            return fn(*args)
+        finally:
+            torch.use_deterministic_algorithms(was, warn_only=warn)
+    return run
+
+
+def library_times(fn, out, want, o):
+    """A library call's ms per call and replayed on the scratch ``o``
+    (None, with the error, where it cannot be captured), and whether
+    ``fn`` on a copy of ``out`` is bit-equal to ``want``."""
+    row = dict(bit_equal_cpu=bool(torch.equal(fn(out.clone()).cpu(), want)),
+               ms=cuda_ms(lambda: fn(o)))
+    try:
+        row["replayed_ms"] = replayed_ms(lambda: fn(o))
+    except RuntimeError as exc:
+        row.update(replayed_ms=None, capture_error=str(exc)[:200])
+    return row
+
+
+def tiled_fields(seg, ids, ids_c, values, rows, o, mem_bytes_per_s,
+                 fp32_instr_per_s):
+    """The tiled form on ``ids``: its tile sort against its plain version,
+    both kernels' times, and the sort's bound."""
+    keys, order, T, L, mask = seg.sort_tiles(ids, rows)
+    ref = seg.sort_tiles_reference(ids_c, rows)
+    got_sort = (keys.cpu(), order.cpu(), None if mask is None else mask.cpu())
+    want_sort = (ref[0], ref[1], ref[4])
+    err_s = 0.0 if (T, L) == ref[2:4] else float("inf")
+    for x, y in zip(got_sort, want_sort):
+        if (x is None) != (y is None) or (
+                x is not None and x.shape != y.shape):
+            err_s = float("inf")
+        elif x is not None and x.numel():
+            err_s = max(err_s, float((x.double() - y.double()).abs().max()))
+    padded = torch.full((T * L,), seg.PAD_KEY, dtype=torch.int32,
+                        device=ids.device)
+    padded[:len(ids)] = ids.to(torch.int32)
+    mask_words_set = int((mask != 0).sum()) if mask is not None else 0
+    sort_bytes = (ids.numel() * ids.element_size() + T * L * (4 + 8)
+                  + mask_words_set * 8)
+    # a bitonic sort of 1,024 slots: 55 compare-exchange stages
+    sort_ops = T * seg.TILE * 55
+    bound_bytes = sort_bytes / mem_bytes_per_s * 1e3
+    bound_ops = sort_ops / fp32_instr_per_s * 1e3
+
+    def tiled():
+        k, p, t, _, m = seg.sort_tiles(ids, rows)
+        return seg.segment_sum_cuda(o, k, values, p, tiles=t, mask=m)
+
+    return dict(
+        tiles=T, tile_len=L, mask_words=seg.mask_words(T) if T > 1 else 0,
+        sort_max_abs_err=err_s,
+        sort_kernel_ms=cuda_ms(lambda: seg.sort_tiles(ids, rows)),
+        sort_back_to_back_ms=back_to_back_ms(
+            lambda: seg.sort_tiles(ids, rows)),
+        sort_replayed_ms=replayed_ms(lambda: seg.sort_tiles(ids, rows)),
+        sort_plain_ms=cpu_ms(lambda: seg.sort_tiles_reference(ids_c, rows),
+                             reps=3, warmup=0),
+        sort_library_ms=cuda_ms(lambda: torch.sort(padded.view(T, L), dim=1,
+                                                   stable=True)),
+        sort_io_bytes=sort_bytes, sort_compare_exchanges=sort_ops,
+        sort_bound_ms=max(bound_bytes, bound_ops),
+        sort_bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+        sum_replayed_ms=replayed_ms(lambda: seg.segment_sum_cuda(
+            o, keys, values, order, tiles=T, mask=mask)),
+        tiled_replayed_ms=replayed_ms(tiled))
+
+
+def phase_tiled(grt, label, adj, iters=20):
+    """Phase 26: the tiled form on a layout path. With sample_size=3072 the
+    intersection repulsion's 4*S*k = 184,320 terms pass the cluster's
+    capacity: run_layout under replay takes one tile sort and one tiled sum
+    an iteration and no cluster launch. One step's calls and the unplanned
+    spring_forces of the graph (2E terms) are recorded for phase 25."""
+    import scipy.sparse as sp
+
+    from graphem_rapids_torch.ops import forces
+
+    emb = grt.GraphEmbedderTorch(adj, n_components=3, seed=0, verbose=False,
+                                 init="random",
+                                 **dict(FORCE_PARAMS, sample_size=3072))
+    emb.run_layout(3, block_size=3)
+    if emb._graph is None:
+        raise AssertionError(f"{label}: run_layout did not capture")
+    with segment_launches(f"{label} sample_size=3072", iters,
+                          form="tiled") as seg_count:
+        t0 = time.perf_counter()
+        pos = emb.run_layout(iters, block_size=10)
+        dt = time.perf_counter() - t0
+    emit("tiled_run", graph=label, sample_size=emb.sample_size, iters=iters,
+         ms_per_iter=dt / iters * 1e3, strategy=emb._strategy,
+         segment_sum_launches=seg_count["launches"],
+         segment_cluster_launches=seg_count["cluster_launches"],
+         sort_launches=seg_count["sort_launches"],
+         finite=bool(np.isfinite(pos).all()))
+    if not np.isfinite(pos).all():
+        raise AssertionError(f"{label}: positions not finite")
+    record_step(emb, f"{label} sample_size=3072")
+    del emb
+    e = np.column_stack(sp.triu(adj, 1).nonzero())
+    positions = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (adj.shape[0], 3)).astype(np.float32)).cuda()
+    with recorded_sums() as got:
+        forces.spring_forces(positions, torch.from_numpy(e).cuda(),
+                             FORCE_PARAMS["k_attr"], FORCE_PARAMS["L_min"])
+    RECORDED_SUMS.extend((f"{label} spring_forces", *c) for c in got)
+
+
 def phase_kernel_segment(seg, calls, mem_bytes_per_s, fp32_instr_per_s):
-    """Phase 25: the accumulator's sum and tile sort against their plain
-    versions on the CPU, on the calls recorded from every layout path.
-    Returns the kernel summaries of the sum and of the tile sort: the
-    times of the first dynamic call recorded (the intersection repulsion's
-    30,720 terms into 100K rows), the largest error over every call."""
-    summary = sort_summary = None
-    sum_err = sort_err = 0.0
+    """Phase 25: the accumulator's kernels against their plain versions on
+    the CPU, on the calls recorded from every layout path. Returns the
+    kernel summaries of the cluster kernel (the first cluster-form call
+    recorded: the intersection repulsion's 30,720 terms into 100K rows),
+    of the sum (the first static call: the 1M hub block plan) and of the
+    tile sort (the first call past the cluster's capacity), each with the
+    largest error over every call of its kernel."""
+    most = seg.cluster_max_terms(torch.device("cuda"))
+    summary = {}
+    err = {"cluster": 0.0, "sum": 0.0, "sort": 0.0}
     for label, kind, out, ids, values, perm in calls:
+        form = kind if kind == "static" else (
+            "cluster" if len(ids) <= most else "tiled")
+
         def kernel(o):
             if kind == "dynamic":
                 return seg.segment_sum(o, ids, values)
@@ -1957,139 +2109,112 @@ def phase_kernel_segment(seg, calls, mem_bytes_per_s, fp32_instr_per_s):
         perm_c = None if perm is None else perm.cpu()
         want = seg.segment_sum_reference(out_c.clone(), ids_c, values_c,
                                          perm_c)
-        before = seg.segment_sum.launches, seg.sort_tiles.launches
+        counts = (seg.segment_sum_cluster.launches, seg.segment_sum.launches,
+                  seg.sort_tiles.launches)
         a, b = kernel(out.clone()), kernel(out.clone())
-        launches = seg.segment_sum.launches - before[0]
-        sort_launches = seg.sort_tiles.launches - before[1]
+        launches = tuple(x - y for x, y in zip(
+            (seg.segment_sum_cluster.launches, seg.segment_sum.launches,
+             seg.sort_tiles.launches), counts))
         a, b = a.cpu(), b.cpu()
-        err = float((a - want).abs().max()) if want.numel() else 0.0
-        sum_err = max(sum_err, err)
+        e = float((a - want).abs().max()) if want.numel() else 0.0
         bit_equal = bool(torch.equal(a, want) and torch.equal(a, b))
+        fields = {}
+        if form == "cluster":
+            plain = seg.segment_sum_cluster_reference(out_c.clone(), ids_c,
+                                                      values_c)
+            fields["bit_equal_plain"] = bool(torch.equal(a, plain))
+            bit_equal = bit_equal and fields["bit_equal_plain"]
+            plain_ms = cpu_ms(lambda: seg.segment_sum_cluster_reference(
+                out_c.clone(), ids_c, values_c))
+        else:
+            # the plain version is the CPU's index_add_, on the CPU's copies
+            plain_ms = cpu_ms(lambda: seg.segment_sum_reference(
+                out_c.clone(), ids_c, values_c, perm_c))
         # in place on a scratch copy: the sums grow, which costs no time
-        o, o_c = out.clone(), out_c.clone()
+        o = out.clone()
         ms = cuda_ms(lambda: kernel(o))
         b2b = back_to_back_ms(lambda: kernel(o))
         replayed = replayed_ms(lambda: kernel(o))
-
-        def library():
-            return o.index_add_(0, ids, values if perm is None
-                                else values[perm])
-
-        # the plain version is the CPU's index_add_, on the CPU's copies
-        plain_ms = cpu_ms(lambda: seg.segment_sum_reference(
-            o_c, ids_c, values_c, perm_c))
-        library_ms = cuda_ms(library)
-        library_replayed = replayed_ms(library)
-        # the plain-torch form the kernel's was weighed against
+        src = values if perm is None else values[perm]
+        library = library_times(lambda x: x.index_add_(0, ids, src), out,
+                                want, o)
+        library_det = library_times(deterministic(
+            lambda x: x.index_add_(0, ids, src)), out, want, o)
         rows = out.shape[0]
-        offsets_at = torch.arange(rows + 1, dtype=torch.int32,
-                                  device=out.device)
+        if form != "static":
+            # the plain-torch form the kernels were weighed against
+            offsets_at = torch.arange(rows + 1, dtype=torch.int32,
+                                      device=out.device)
 
-        def reduce_form():
-            keys, order = torch.sort(ids.to(torch.int32), stable=True)
-            offsets = torch.searchsorted(keys, offsets_at)
-            src = values if perm is None else values[perm]
-            return torch.segment_reduce(src[order].reshape(len(ids), -1),
-                                        "sum", offsets=offsets, unsafe=True)
+            def reduce_form():
+                keys, order = torch.sort(ids.to(torch.int32), stable=True)
+                offsets = torch.searchsorted(keys, offsets_at)
+                return torch.segment_reduce(
+                    values[order].reshape(len(ids), -1), "sum",
+                    offsets=offsets, unsafe=True)
 
-        reduce_ms = cuda_ms(reduce_form)
-        reduce_replayed = replayed_ms(reduce_form)
-        reduce_equal = bool(torch.equal(
-            out.cpu() + reduce_form().reshape(out.shape).cpu(), want)) \
-            if not out.any() else None
-        fields, sort_equal = {}, True
-        if kind == "dynamic":
-            keys, order, T, L, mask = seg.sort_tiles(ids, rows)
-            ref = seg.sort_tiles_reference(ids_c, rows)
-            got_sort = (keys.cpu(), order.cpu(),
-                        None if mask is None else mask.cpu())
-            want_sort = (ref[0], ref[1], ref[4])
-            err_s = 0.0 if (T, L) == ref[2:4] else float("inf")
-            for x, y in zip(got_sort, want_sort):
-                if (x is None) != (y is None) or (
-                        x is not None and x.shape != y.shape):
-                    err_s = float("inf")
-                elif x is not None and x.numel():
-                    err_s = max(err_s, float(
-                        (x.double() - y.double()).abs().max()))
-            sort_equal = err_s == 0.0
-            sort_err = max(sort_err, err_s)
-            padded = torch.full((T * L,), seg.PAD_KEY, dtype=torch.int32,
-                                device=ids.device)
-            padded[:len(ids)] = ids.to(torch.int32)
-
-            def sort_library():
-                return torch.sort(padded.view(T, L), dim=1, stable=True)
-
-            W = seg.mask_words(T) if T > 1 else 0
-            mask_words_set = (int((mask != 0).sum()) if mask is not None
-                              else 0)
-            sort_bytes = (ids.numel() * ids.element_size() + T * L * (4 + 8)
-                          + mask_words_set * 8)
-            # a bitonic sort of 1,024 slots: 55 compare-exchange stages
-            sort_ops = T * seg.TILE * 55
-            sort_bound_bytes = sort_bytes / mem_bytes_per_s * 1e3
-            sort_bound_ops = sort_ops / fp32_instr_per_s * 1e3
-            sort_bound = max(sort_bound_bytes, sort_bound_ops)
-            sort_by = ("bytes" if sort_bound_bytes >= sort_bound_ops
-                       else "operations")
-            fields = dict(
-                tiles=T, tile_len=L, mask_words=W,
-                sort_bit_equal_plain=sort_equal, sort_launches=sort_launches,
-                sort_kernel_ms=cuda_ms(lambda: seg.sort_tiles(ids, rows)),
-                sort_back_to_back_ms=back_to_back_ms(
-                    lambda: seg.sort_tiles(ids, rows)),
-                sort_replayed_ms=replayed_ms(
-                    lambda: seg.sort_tiles(ids, rows)),
-                sort_plain_ms=cpu_ms(
-                    lambda: seg.sort_tiles_reference(ids_c, rows)),
-                sort_library_ms=cuda_ms(sort_library),
-                sort_io_bytes=sort_bytes, sort_compare_exchanges=sort_ops,
-                sort_bound_ms=sort_bound, sort_bound_by=sort_by,
-                sum_replayed_ms=replayed_ms(
-                    lambda: seg.segment_sum_cuda(o, keys, values, order,
-                                                 tiles=T, mask=mask)))
+            fields.update(
+                segment_reduce_replayed_ms=replayed_ms(reduce_form),
+                segment_reduce_bit_equal=bool(torch.equal(
+                    out.cpu() + reduce_form().reshape(out.shape).cpu(),
+                    want)) if not out.any() else None)
+            # the tiled form at every dynamic call, for comparison
+            fields.update(tiled_fields(seg, ids, ids_c, values, rows, o,
+                                       mem_bytes_per_s, fp32_instr_per_s))
+            err["sort"] = max(err["sort"], fields["sort_max_abs_err"])
         touched = int(np.unique(ids_c.numpy()).size)
         d = out.shape[1] if out.ndim == 2 else 1
         io_bytes = (ids.numel() * ids.element_size()
                     + (0 if perm is None else perm.numel() * 8)
                     + values.numel() * 4 + 2 * touched * d * 4)
         bound = io_bytes / mem_bytes_per_s * 1e3
-        emit("kernel_segment_sum", path=label, form=kind, terms=len(ids),
-             rows=rows, d=d, touched_rows=touched, launches=launches,
-             bit_equal_cpu_index_add=bit_equal, max_abs_err=err,
-             kernel_ms=ms, back_to_back_ms=b2b, replayed_ms=replayed,
-             plain_ms=plain_ms, library_ms=library_ms,
-             library_replayed_ms=library_replayed,
-             segment_reduce_ms=reduce_ms,
-             segment_reduce_replayed_ms=reduce_replayed,
-             segment_reduce_bit_equal=reduce_equal, io_bytes=io_bytes,
+        emit("kernel_segment_sum", path=label, form=form, terms=len(ids),
+             rows=rows, d=d, touched_rows=touched,
+             cluster_launches=launches[0], sum_launches=launches[1],
+             sort_launches=launches[2], bit_equal_cpu_index_add=bit_equal,
+             max_abs_err=e, kernel_ms=ms, back_to_back_ms=b2b,
+             replayed_ms=replayed, plain_ms=plain_ms, library=library,
+             deterministic_library=library_det, io_bytes=io_bytes,
              bound_ms=bound, bound_by="bytes", **fields)
-        want_sorts = 2 if kind == "dynamic" else 0
-        if not (bit_equal and sort_equal) or launches != 2 \
-                or sort_launches != want_sorts:
+        want_launches = {"cluster": (2, 0, 0), "tiled": (0, 2, 2),
+                         "static": (0, 2, 0)}[form]
+        if not bit_equal or launches != want_launches or \
+                fields.get("sort_max_abs_err", 0.0) != 0.0:
             raise AssertionError(
-                f"segment_sum {label} {kind}: not bit-equal to the CPU's "
-                f"index_add_ (err {err}) or its tile sort not equal to its "
-                f"plain version ({sort_equal}), or {launches} sums and "
-                f"{sort_launches} sorts for 2 calls")
-        if summary is None and kind == "dynamic":
-            summary = dict(ms=ms, back_to_back_ms=b2b, replayed_ms=replayed,
-                           plain_ms=plain_ms, bound_ms=bound,
-                           bound_by="bytes", library_ms=library_ms)
-            sort_summary = dict(
-                ms=fields["sort_kernel_ms"],
-                back_to_back_ms=fields["sort_back_to_back_ms"],
-                replayed_ms=fields["sort_replayed_ms"],
-                plain_ms=fields["sort_plain_ms"], bound_ms=sort_bound,
-                bound_by=sort_by, library_ms=fields["sort_library_ms"])
-    if summary is None:
-        raise AssertionError("segment_sum: no dynamic call was recorded")
+                f"segment_sum {label} {form}: not bit-equal to the CPU's "
+                f"index_add_ and its plain version (err {e}), or the tile "
+                f"sort not equal to its plain version, or launches "
+                f"{launches} (cluster, sum, sort) for 2 calls, want "
+                f"{want_launches}")
+        key = {"cluster": "cluster", "static": "sum", "tiled": "sort"}[form]
+        err[key] = max(err[key], e)
+        if key not in summary:
+            summary[key] = dict(
+                ms=ms, back_to_back_ms=b2b, replayed_ms=replayed,
+                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                library_ms=library["ms"],
+                library_replayed_ms=library["replayed_ms"],
+                deterministic_library_ms=library_det["ms"],
+                deterministic_library_replayed_ms=library_det["replayed_ms"],
+                deterministic_library_bit_equal=library_det["bit_equal_cpu"])
+            if key == "sort":
+                summary[key] = dict(
+                    ms=fields["sort_kernel_ms"],
+                    back_to_back_ms=fields["sort_back_to_back_ms"],
+                    replayed_ms=fields["sort_replayed_ms"],
+                    plain_ms=fields["sort_plain_ms"],
+                    bound_ms=fields["sort_bound_ms"],
+                    bound_by=fields["sort_bound_by"],
+                    library_ms=fields["sort_library_ms"])
+    missing = {"cluster", "sum", "sort"} - set(summary)
+    if missing:
+        raise AssertionError(f"segment_sum: no recorded call of {missing}")
     paths = sorted({label for label, *_ in calls})
     emit("kernel_segment_sum_paths", paths=paths, calls=len(calls),
-         max_abs_err=sum_err, sort_max_abs_err=sort_err)
-    return dict(max_abs_err=sum_err, **summary), \
-        dict(max_abs_err=sort_err, **sort_summary)
+         cluster_max_terms=most,
+         cluster_groups=seg.cluster_groups(torch.device("cuda")),
+         max_abs_err=err)
+    return {k: dict(max_abs_err=err[k], **v) for k, v in summary.items()}
 
 
 def eager_steps(emb, n):
@@ -2258,7 +2383,9 @@ def phase_approx(grt, bf, kp, label, adj, init, warmup):
          peak_mem_gib=peak, reserved_gib=reserved,
          oneshot_peak_factor=factor,
          binfold_launches=k1, pallas_launches=k2,
-         segment_sum_launches=seg_count["launches"], k=k,
+         segment_sum_launches=seg_count["launches"],
+         segment_cluster_launches=seg_count["cluster_launches"],
+         k=k,
          recall_vs_exact=recall,
          distances_equal_exact=bool(torch.equal(av, ev)),
          finite=bool(np.isfinite(pos).all()), std=std.tolist())
@@ -2666,6 +2793,7 @@ def phase_sharded(grt, bf, rb, label, adj, init, warmup, profile, log,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
          ring_binfold_launches=ring, binfold_launches=k1,
          segment_sum_launches=seg_count["launches"],
+         segment_cluster_launches=seg_count["cluster_launches"],
          finite=bool(np.isfinite(pos).all()), std=std.tolist())
     # one K3 launch per iteration runs every hop of the ring
     want = (ITERS, 0) if knn_comm == "ring_pallas" else (0, ITERS)
@@ -2823,6 +2951,7 @@ def phase_toolkit(grt, bf, log, checked):
          m_edges=res["m"], layout_time=res["layout_time"],
          edges_per_second=res["edges_per_second"], binfold_launches=launches,
          segment_sum_launches=seg_count["launches"],
+         segment_cluster_launches=seg_count["cluster_launches"],
          binfold_shapes=sorted(shapes),
          spearman_radius_degree=rho, finite=finite,
          karate_n=adj.shape[0], karate_device=str(emb.device),
@@ -3259,8 +3388,9 @@ def main(argv):
             # it at exit
             dist.destroy_process_group()
     launches += phase_toolkit(grt, bf, log, k1["checked"])
-    seg_summary, sort_summary = phase_kernel_segment(
-        seg, RECORDED_SUMS, MEM_BYTES_PER_S, fp32_instr_per_s)
+    phase_tiled(grt, "random_8_regular_100k", adj100k)
+    acc = phase_kernel_segment(seg, RECORDED_SUMS, MEM_BYTES_PER_S,
+                               fp32_instr_per_s)
     RECORDED_SUMS.clear()
     phase_multi_card(profile=profile)
     log.take("smoke run")
@@ -3331,19 +3461,26 @@ def main(argv):
         "bound_by": scatter["bound_by"],
         "library_ms": None,
     }, {
+        "name": "segment_sum_cluster",
+        "route": "cuda",
+        "source": "graphem_rapids_torch/csrc/segment_sum.cu",
+        "replaces": "graphem_rapids_tpu/ops/forces.py:1210",
+        "launches": sum(PATH_CLUSTER_LAUNCHES),
+        **acc["cluster"],
+    }, {
         "name": "segment_sum",
         "route": "cuda",
         "source": "graphem_rapids_torch/csrc/segment_sum.cu",
         "replaces": "graphem_rapids_tpu/ops/forces.py:1210",
         "launches": sum(PATH_SEGMENT_LAUNCHES),
-        **seg_summary,
+        **acc["sum"],
     }, {
         "name": "segment_sort_tiles",
         "route": "cuda",
         "source": "graphem_rapids_torch/csrc/segment_sum.cu",
         "replaces": "graphem_rapids_tpu/ops/forces.py:1210",
         "launches": sum(PATH_SORT_LAUNCHES),
-        **sort_summary,
+        **acc["sort"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

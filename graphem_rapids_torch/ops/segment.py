@@ -12,16 +12,32 @@ and bit-equal to the CPU's on the same inputs.
 Two forms, both in place on ``out`` and both adding onto its current rows,
 as ``out.index_add_(0, ids, values)`` does:
 
-- ``segment_sum(out, ids, values)``, for ids known only when the step runs
-  (the 4*S*k endpoints of ``intersection_forces``; outside the engines'
-  steps, the unplanned ``spring_forces`` and the edge-sharded sum of a
-  step built without a table). On a card the ids are cut into tiles of at
-  most ``TILE`` consecutive terms (``tile_shape``), as many as there are;
-  the tile sort's launch sorts each tile stably as int32 keys (n < 2^31)
-  and marks each row's tiles in a mask of ``mask_words(T)`` 64-bit words a
-  row (rows * ceil(M / 65536) words of scratch), the sum's launch adds each
-  row's runs tile by tile. Nothing reads back to the host, so the form is
-  captured with the layout step;
+- ``segment_sum(out, ids, values)``, for ids known only when the step runs.
+  On a card the form it takes goes by the number of terms M:
+
+  - M up to ``cluster_max_terms(device)`` (``CLUSTER_MAX_TERMS`` =
+    131,072 on an H100, from the shared memory a block may opt in to): one
+    launch of ``segment_sum_cluster``, up to ``CLUSTER_GROUPS`` thread-block
+    clusters of ``CLUSTER_BLOCKS`` blocks, each taking one range of rows
+    (``cluster_rows``): a cluster sorts the terms of its rows in its
+    distributed shared memory, so that each row's terms lie in one
+    contiguous run, and adds each run from the lane at its start (the
+    blocks' digit counts go through a global scratch, the keys stay in
+    shared memory). Every call of the engines' steps takes it: the 4*S*k
+    endpoints of ``intersection_forces`` (30,720 on the main path, 98,304
+    for 'approx' at n_neighbors=48);
+  - larger M (the unplanned ``spring_forces``, the edge-sharded sum of a
+    step built without a table, a step of 4*S*k past the capacity): the
+    ids cut into tiles of at most ``TILE`` consecutive terms
+    (``tile_shape``): the tile sort's launch sorts each tile stably as
+    int32 keys (n < 2^31) and marks each row's tiles in a mask of
+    ``mask_words(T)`` 64-bit words a row (rows * ceil(M / 65536) words of
+    scratch, zeroed each call), the sum's launch adds each row's runs tile
+    by tile.
+
+  Neither reads back to the host, so the form is captured with the layout
+  step. This is a size rule, not a fallback: a failed build or launch
+  raises;
 - ``segment_sum_sorted(out, keys, values, perm=None)``, for ids sorted once
   when their plan or table is built (the block-fold plan's ``block_hub``,
   the scatter plan, the tables' COO overflow rows, the Chebyshev SpMV's
@@ -29,16 +45,23 @@ as ``out.index_add_(0, ids, values)`` does:
   key order (``perm`` None: ``values`` are in key order already); a call
   only sums.
 
-The kernel (``csrc/segment_sum.cu``) adds each row's terms in order in one
+The kernels (``csrc/segment_sum.cu``) add each row's terms in order in one
 thread, from the row's current value, with ``__fadd_rn``.
-``segment_sum_reference`` is its plain version, the CPU's ``index_add_``,
-and ``sort_tiles_reference`` the tile sort's, a stable ``torch.sort`` of
-each tile; the wrappers run them for tensors on the CPU. For CUDA tensors
-they launch the kernels or raise: nothing here falls back to
-``index_add_``'s atomics or to ``torch.sort``. ``segment_sum.launches``
-counts the sum's launches, by either form, and ``sort_tiles.launches`` the
-tile sort's (one per dynamic call). Ids must lie in [0, rows of out); the
-card does not read them back to check.
+``segment_sum_reference`` is the sums' plain version, the CPU's
+``index_add_``; ``cluster_walk_reference`` is the cluster kernel's order (a
+stable ``torch.sort`` of the whole id list), which
+``segment_sum_cluster_reference`` adds term by term; ``sort_tiles_reference``
+is the tile sort's, a stable ``torch.sort`` of each tile. The wrappers run
+the plain versions for tensors on the CPU. For CUDA tensors they launch the
+kernels or raise: nothing here falls back to ``index_add_``'s atomics or to
+``torch.sort``. The CPU tests hold each plain version against
+``index_add_``; ``python -m pytest --noconftest -m cuda
+tests/test_torch_determinism.py`` on a card and phase 25 of
+``chip_smoke.py`` hold each kernel bit-equal to the CPU's ``index_add_``
+and to its plain version. ``segment_sum_cluster.launches`` counts the
+cluster kernel's launches, ``segment_sum.launches`` the tiled and static
+sum's (by either form) and ``sort_tiles.launches`` the tile sort's. Ids
+must lie in [0, rows of out); the card does not read them back to check.
 """
 
 import ctypes
@@ -52,6 +75,17 @@ from .. import _build
 TILE = 1024
 # The key that pads the last tile (the kernel skips it): past any row.
 PAD_KEY = 2**31 - 1
+# Blocks of a cluster of the cluster kernel, and its most clusters a launch.
+CLUSTER_BLOCKS = 16
+CLUSTER_GROUPS = 8
+# The most terms that one cluster launch sums on an H100 (232,448 bytes of
+# shared memory a block): what one cluster holds, 16 blocks of 8,192 keys,
+# since all the terms may fall to one cluster's rows. Other cards report
+# their own (``cluster_max_terms``).
+CLUSTER_MAX_TERMS = 131_072
+# The most bits of the row that one radix pass of the cluster kernel sorts
+# by.
+RADIX_BITS = 10
 
 
 def tile_shape(M):
@@ -215,6 +249,134 @@ def segment_sum_cuda(out, keys, values, perm=None, tiles=1, mask=None):
     return out
 
 
+def cluster_walk_reference(ids):
+    """Plain version of the cluster kernel's order: (rows, terms), the
+    stable sort of the whole (M,) id list, so each row's terms form one
+    run in ascending term order."""
+    return torch.sort(ids, stable=True)
+
+
+def segment_sum_cluster_reference(out, ids, values):
+    """Plain version of the cluster kernel: ``cluster_walk_reference``'s
+    order, added term by term onto ``out`` (the CPU's ``index_add_`` adds
+    in that order); in place, returns ``out``."""
+    rows, terms = cluster_walk_reference(ids)
+    return out.index_add_(0, rows, values[terms])
+
+
+def cluster_rows(rows, groups):
+    """(clusters, rows a cluster) of a launch on a card that runs ``groups``
+    clusters at once: cluster g sums the rows [g * span, g * span + span)."""
+    groups = max(1, min(groups, rows))
+    return groups, -(-rows // groups)
+
+
+def radix_digits(span):
+    """(passes, bits a pass) of a cluster's sort of the rows of a range of
+    ``span``: as few passes of at most RADIX_BITS as the offsets' bits
+    need, and one at least (a pass gathers the cluster's terms), the bits
+    spread evenly over them."""
+    bits = max(span - 1, 0).bit_length()
+    passes = max(1, -(-bits // RADIX_BITS))
+    return passes, max(1, -(-bits // passes))
+
+
+_capacity = {}
+
+
+def cluster_max_terms(device):
+    """The most terms that one cluster launch sums on the CUDA ``device``,
+    from the shared memory a block may opt in to there (CLUSTER_MAX_TERMS
+    on an H100; 0 where the card cannot run a cluster). The first call on a
+    device sets the kernel up there."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    got = _capacity.get(index)
+    if got is None:
+        fn = _build.load("segment_sum").graphem_segment_cluster_capacity
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int]
+        got = fn(index)
+        if got < 0:
+            raise RuntimeError(f"segment_sum cluster capacity: CUDA error "
+                               f"{-got}")
+        _capacity[index] = got
+    return got
+
+
+def cluster_groups(device):
+    """The clusters a cluster launch may take on the CUDA ``device``: as
+    many as run there at once, at most CLUSTER_GROUPS (7 on an H100)."""
+    cluster_max_terms(device)
+    fn = _build.load("segment_sum").graphem_segment_cluster_groups
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    index = torch.device(device).index
+    return fn(torch.cuda.current_device() if index is None else index)
+
+
+def _cluster_fn():
+    fn = _build.load("segment_sum").graphem_segment_cluster_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    return fn
+
+
+def segment_sum_cluster(out, ids, values):
+    """``out.index_add_(0, ids, values)`` by one launch of the cluster
+    kernel on CUDA tensors, each row's terms in ascending order; in place,
+    returns ``out``. ``ids`` (M,) int32 or int64, 1 <= M <=
+    cluster_max_terms; ``values`` (M, d) or (M,) and ``out`` (rows, d) or
+    (rows,) float32. Bit-equal to segment_sum_cluster_reference."""
+    if not (out.is_cuda and ids.device == out.device
+            and values.device == out.device):
+        raise ValueError("segment_sum_cluster takes CUDA tensors on one "
+                         "device")
+    if out.dtype != torch.float32 or values.dtype != torch.float32:
+        raise TypeError(f"segment_sum_cluster takes float32 values and out, "
+                        f"got {values.dtype} and {out.dtype}")
+    if ids.dtype not in (torch.int32, torch.int64) or ids.ndim != 1:
+        raise TypeError(f"segment_sum_cluster takes int32 or int64 ids of one "
+                        f"dimension, got {ids.dtype} {tuple(ids.shape)}")
+    if (out.ndim not in (1, 2) or values.shape[1:] != out.shape[1:]
+            or values.shape[0] != ids.shape[0]):
+        raise ValueError(f"ids {tuple(ids.shape)}, values "
+                         f"{tuple(values.shape)} and out {tuple(out.shape)} "
+                         f"do not match")
+    if not out.is_contiguous():
+        raise ValueError("segment_sum_cluster adds into a contiguous out")
+    M = ids.shape[0]
+    d = out.shape[1] if out.ndim == 2 else 1
+    if d == 0:
+        return out
+    most = cluster_max_terms(out.device)
+    if not 1 <= M <= most:
+        raise ValueError(f"segment_sum_cluster sums 1 to {most} terms on this "
+                         f"card, got {M}")
+    ids = ids.contiguous()
+    values = values.contiguous()
+    groups, span = cluster_rows(out.shape[0], cluster_groups(out.device))
+    passes, width = radix_digits(span)
+    # each block's digit counts, for its cluster (written before read)
+    counts = torch.empty(groups * CLUSTER_BLOCKS * 1024, dtype=torch.int32,
+                         device=out.device)
+    fn = _cluster_fn()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        segment_sum_cluster.launches += 1
+        rc = fn(ids.data_ptr(), ids.element_size(), M, groups, span, passes,
+                width, values.data_ptr(), out.data_ptr(), d,
+                counts.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"segment_sum cluster kernel launch failed: CUDA "
+                           f"error {rc}")
+    return out
+
+
 def segment_sum_sorted(out, keys, values, perm=None):
     """``out[keys[i]] += values[perm[i]]`` in order of i, in place; returns
     ``out``. ``keys`` must be sorted ascending, as a plan's are; ``perm``
@@ -226,15 +388,25 @@ def segment_sum_sorted(out, keys, values, perm=None):
 
 def segment_sum(out, ids, values):
     """``out.index_add_(0, ids, values)`` with each row's terms added in
-    ascending order, in place; returns ``out``. On a card the ids are
-    sorted on the card first, tile by tile (``sort_tiles``)."""
+    ascending order, in place; returns ``out``. On a card up to
+    ``cluster_max_terms`` terms take one cluster launch
+    (``segment_sum_cluster``), more the tile sort and the sum."""
     if out.is_cuda:
-        if ids.shape[0] == 0:
-            return out
-        keys, perm, T, _, mask = sort_tiles(ids, out.shape[0])
-        return segment_sum_cuda(out, keys, values, perm, tiles=T, mask=mask)
+        return _card_dynamic(out, ids, values)
     return segment_sum_reference(out, ids, values)
 
 
+def _card_dynamic(out, ids, values):
+    """segment_sum's form on a card, by the number of terms."""
+    M = ids.shape[0]
+    if M == 0:
+        return out
+    if M <= cluster_max_terms(out.device):
+        return segment_sum_cluster(out, ids, values)
+    keys, perm, T, _, mask = sort_tiles(ids, out.shape[0])
+    return segment_sum_cuda(out, keys, values, perm, tiles=T, mask=mask)
+
+
 segment_sum.launches = 0
+segment_sum_cluster.launches = 0
 sort_tiles.launches = 0

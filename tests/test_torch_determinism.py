@@ -4,15 +4,19 @@ gives the layout.
 The accumulator adds each row's terms in ascending contribution order, as
 ``index_add_`` does on the CPU. On the CPU its plain path is held bit-equal
 to ``index_add_`` and to a numpy float32 loop in ascending order, in both
-forms (dynamic ids, and static ids sorted once). The card's tiled form is
-modeled with numpy on the tile sort's plain version: the order in which the
-kernel walks a row's terms gives index_add_'s bits. The step ops that moved
-from ``index_add_`` onto it are held bit-equal to their ``index_add_``
-forms, the edge-sharded spring sum on a two-rank gloo mesh among them. The
-engine gives the same layout for the same seed, and a run resumed from a
-checkpoint equals the uninterrupted run. Tests marked ``cuda`` need a card
-and skip without one; they hold the kernel bit-equal to the CPU's
-index_add_ and the engine's seeded and resumed runs bit-equal on the card:
+forms (dynamic ids, and static ids sorted once). The card's two dynamic
+forms are modeled with numpy on their plain versions: the cluster kernel's
+one sorted order (and its radix passes over the cluster's blocks) and the
+tiled form's row walk each give index_add_'s bits, and the dispatch takes
+the cluster form up to its capacity and the tiled form past it. The step
+ops that moved from ``index_add_`` onto it are held bit-equal to their
+``index_add_`` forms, the edge-sharded spring sum on a two-rank gloo mesh
+among them. The engine gives the same layout for the same seed, and a run
+resumed from a checkpoint equals the uninterrupted run. Tests marked
+``cuda`` need a card and skip without one; they hold the kernels bit-equal
+to the CPU's index_add_ (and the cluster kernel to its plain version,
+under graph replay too) and the engine's seeded and resumed runs bit-equal
+on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_determinism.py
 """
@@ -157,6 +161,151 @@ def test_tiled_walk_gives_index_add_bits(M):
     np.testing.assert_array_equal(walked, _index_add(out, ids, values))
 
 
+def _cluster_radix_model(ids, rows, groups=seg.CLUSTER_GROUPS):
+    """The cluster kernel's passes in numpy. Cluster g takes the rows of
+    its range; in pass 0 its block b reads terms [b * m0, b * m0 + m0) and
+    keeps those, in later passes it holds places [b * c, b * c + c) of the
+    cluster's order; each pass places a key at its digit's first place in
+    the cluster's order (keys of smaller digits, then this digit's in
+    earlier blocks), plus the digit's keys before it in its block. Returns
+    (rows, terms) in the clusters' orders, one after another."""
+    B = seg.CLUSTER_BLOCKS
+    M = len(ids)
+    m0 = -(-M // B)
+    groups, span = seg.cluster_rows(rows, groups)
+    passes, width = seg.radix_digits(span)
+    found = []
+    for g in range(groups):
+        mine = (ids >= g * span) & (ids < g * span + span)
+        key = np.stack([ids.astype(np.int64), np.arange(M)], axis=1)
+        blocks = [key[b * m0:(b + 1) * m0][mine[b * m0:(b + 1) * m0]]
+                  for b in range(B)]
+        for p in range(passes):
+            digit = [((k[:, 0] - g * span) >> (width * p)) & ((1 << width) - 1)
+                     for k in blocks]
+            count = np.stack([np.bincount(x, minlength=1 << width)
+                              for x in digit])
+            total = count.sum(0)
+            base = (np.cumsum(total) - total)[None, :] \
+                + np.cumsum(count, axis=0) - count
+            nxt = np.empty((int(total.sum()), 2), np.int64)
+            for b in range(B):
+                seen = np.zeros(1 << width, np.int64)
+                for k, x in zip(blocks[b], digit[b]):
+                    nxt[base[b, x] + seen[x]] = k
+                    seen[x] += 1
+            c = max(1, -(-len(nxt) // B))
+            blocks = [nxt[b * c:(b + 1) * c] for b in range(B)]
+        found.extend(blocks)
+    key = np.concatenate(found)
+    return key[:, 0], key[:, 1]
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("M", [1, 1025, 30720, 98304, seg.CLUSTER_MAX_TERMS,
+                               seg.CLUSTER_MAX_TERMS + 1])
+def test_cluster_walk_gives_index_add_bits(M):
+    """The cluster kernel's order: one stable sort of the whole id list, so
+    each row's terms form one contiguous run in ascending term order, with
+    rows that recur across the cluster's blocks; adding the terms in
+    that order gives index_add_'s bits. Up to a few thousand terms the
+    kernel's radix passes, modeled block by block, give the same order."""
+    rows = 300
+    rng = np.random.default_rng(M)
+    ids = rng.integers(0, rows, M)
+    # runs of 16 equal ids in the first half (as intersection_forces'
+    # repeat_interleave), and rows 0-3 in every third term throughout
+    ids[: M // 2] = np.repeat(rng.integers(0, rows, -(-M // 32)), 16)[:M // 2]
+    ids[1::3] = rng.integers(0, 4, len(ids[1::3]))
+    values = (rng.standard_normal((M, 3)) * 1e3).astype(np.float32)
+    out = rng.standard_normal((rows, 3)).astype(np.float32)
+    row, term = (x.numpy() for x in seg.cluster_walk_reference(
+        torch.from_numpy(ids)))
+    np.testing.assert_array_equal(np.sort(term), np.arange(M))
+    np.testing.assert_array_equal(ids[term], row)
+    assert (np.diff(row) >= 0).all()
+    same = row[1:] == row[:-1]
+    assert (np.diff(term)[same] > 0).all()
+    # each row's run is contiguous: one start per distinct row
+    assert 1 + (~same).sum() == np.unique(ids).size
+    B = seg.CLUSTER_BLOCKS
+    if M > 16 * B:
+        c = -(-M // B)
+        blocks = [set(ids[b * c:(b + 1) * c]) for b in range(B)]
+        assert set.intersection(*blocks)  # a row in every block
+    walked = out.copy()
+    np.add.at(walked, row, values[term])  # unbuffered: in the walk's order
+    want = _index_add(out, ids, values)
+    np.testing.assert_array_equal(walked, want)
+    got = seg.segment_sum_cluster_reference(
+        torch.from_numpy(out.copy()), torch.from_numpy(ids),
+        torch.from_numpy(values))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if M <= 30720:
+        model = _cluster_radix_model(ids, rows)
+        np.testing.assert_array_equal(model[0], row)
+        np.testing.assert_array_equal(model[1], term)
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("span,digits", [
+    (1, (1, 1)), (2, (1, 1)), (1024, (1, 10)), (1025, (2, 6)),
+    (12_500, (2, 7)), (125_000, (2, 9)), (2**24 + 1, (3, 9)),
+    (2**31, (4, 8))])
+def test_cluster_radix_passes_cover_the_rows(span, digits):
+    """A cluster sorts its range of rows by as few digits of at most 10
+    bits as the range needs, one pass at least (it gathers the cluster's
+    terms)."""
+    assert seg.radix_digits(span) == digits
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("rows,groups", [(1, 8), (2, 8), (300, 8), (300, 1),
+                                         (257, 3), (70_000, 7),
+                                         (2**24 + 1, 8)])
+def test_cluster_passes_model_the_stable_sort(rows, groups):
+    """The clusters' ranges of rows and their passes, modeled block by
+    block, give the stable sort of the ids, up to the last row."""
+    assert seg.cluster_rows(rows, groups)[0] == min(rows, groups)
+    rng = np.random.default_rng(rows)
+    ids = rng.integers(0, rows, 3000)
+    ids[:40] = rows - 1
+    ids[100:400] = 0
+    row, term = _cluster_radix_model(ids, rows, groups)
+    order = np.argsort(ids, kind="stable")
+    np.testing.assert_array_equal(row, ids[order])
+    np.testing.assert_array_equal(term, order)
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("M", [0, 1, seg.CLUSTER_MAX_TERMS,
+                               seg.CLUSTER_MAX_TERMS + 1, 3 * 10**5])
+def test_dynamic_form_by_the_number_of_terms(monkeypatch, M):
+    """On a card, segment_sum takes one cluster launch up to the capacity
+    the card reports and the tile sort and the tiled sum past it; no terms,
+    no launch. The kernels are stood in for by recorders here."""
+    calls = []
+    monkeypatch.setattr(seg, "cluster_max_terms",
+                        lambda device: seg.CLUSTER_MAX_TERMS)
+    monkeypatch.setattr(seg, "segment_sum_cluster",
+                        lambda out, ids, values: calls.append("cluster")
+                        or out)
+    monkeypatch.setattr(seg, "sort_tiles",
+                        lambda ids, rows: calls.append("sort_tiles")
+                        or seg.sort_tiles_reference(ids, rows))
+    monkeypatch.setattr(seg, "segment_sum_cuda",
+                        lambda out, *a, **k: calls.append("tiled_sum") or out)
+    out = torch.zeros(50, 3)
+    ids = torch.from_numpy(np.random.default_rng(M).integers(0, 50, M))
+    assert seg._card_dynamic(out, ids, torch.zeros(M, 3)) is out
+    if M == 0:
+        assert calls == []
+    elif M <= seg.CLUSTER_MAX_TERMS:
+        assert calls == ["cluster"]
+    else:
+        assert calls == ["sort_tiles", "tiled_sum"]
+
+
 @pytest.mark.fast
 def test_tile_shape():
     assert seg.tile_shape(0) == (1, 0)
@@ -177,6 +326,9 @@ def test_kernel_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="CUDA"):
         seg.segment_sum_cuda(out, torch.zeros(2, dtype=torch.int64),
                              torch.zeros(2, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        seg.segment_sum_cluster(out, torch.zeros(2, dtype=torch.int64),
+                                torch.zeros(2, 3))
 
 
 # ---------------------------------------------------------------------- #
@@ -530,6 +682,95 @@ def test_card_dynamic_form_bit_equal_to_cpu(cuda_device, M, case):
                               torch.from_numpy(ids).to(cuda_device),
                               torch.from_numpy(values).to(cuda_device))
         np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_card_cluster_capacity(cuda_device):
+    """The capacity comes from the card's shared memory: every engine's
+    step (98,304 terms at most) fits; an H100 gives CLUSTER_MAX_TERMS."""
+    most = seg.cluster_max_terms(cuda_device)
+    assert most >= 98304
+    if "H100" in torch.cuda.get_device_name(cuda_device):
+        assert most == seg.CLUSTER_MAX_TERMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 1000, 1025, 30720, 65536, 70000, 98304,
+                               131072, 140000])
+@pytest.mark.parametrize("case", ["ties_and_gaps", "base"])
+def test_card_cluster_form_bit_equal_to_cpu(cuda_device, M, case):
+    """One cluster launch per call, bit-equal to the CPU's index_add_ and to
+    its plain version; past the capacity the cluster kernel refuses the
+    call and segment_sum takes the tiled form."""
+    ids, values, out = _terms(case, rows=50000, M=M)
+    want = _index_add(out, ids, values)
+    plain = seg.segment_sum_cluster_reference(
+        torch.from_numpy(out.copy()), torch.from_numpy(ids),
+        torch.from_numpy(values)).numpy()
+    np.testing.assert_array_equal(plain, want)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (out, ids, values)]
+    counts = (seg.segment_sum_cluster.launches, seg.sort_tiles.launches)
+    if M > seg.cluster_max_terms(cuda_device):
+        with pytest.raises(ValueError, match="terms"):
+            seg.segment_sum_cluster(*args)
+        seg.segment_sum(*args)
+        assert (seg.segment_sum_cluster.launches,
+                seg.sort_tiles.launches) == (counts[0], counts[1] + 1)
+        return
+    for _ in range(2):
+        got = seg.segment_sum_cluster(args[0].clone(), *args[1:])
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    got = seg.segment_sum(*args)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert (seg.segment_sum_cluster.launches,
+            seg.sort_tiles.launches) == (counts[0] + 3, counts[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 256, 257, 2**24 + 1])
+@pytest.mark.parametrize("d", [0, 1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_card_cluster_form_rows_widths_and_ids(cuda_device, rows, d, dtype):
+    """The cluster kernel with no radix pass (one row) up to four (2^24 + 1
+    rows), vector and row values, int32 and int64 ids; a row in every
+    block, a run across blocks."""
+    rng = np.random.default_rng(rows + d)
+    M = 30720
+    ids = rng.integers(0, rows, M)
+    ids[::7] = rows - 1
+    ids[8000:20000] = 0
+    shape = (M, d) if d else (M,)
+    values = rng.standard_normal(shape).astype(np.float32)
+    out = rng.standard_normal((rows, d) if d else (rows,)).astype(np.float32)
+    want = _index_add(out, ids, values)
+    got = seg.segment_sum_cluster(
+        torch.from_numpy(out).to(cuda_device),
+        torch.from_numpy(ids).to(dtype).to(cuda_device),
+        torch.from_numpy(values).to(cuda_device))
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [30720, 98304])
+def test_card_cluster_form_under_graph_replay(cuda_device, M):
+    """A capture of one cluster call replays bit-equal, one launch a
+    replay."""
+    ids, values, out = _terms("base", rows=100000, M=M)
+    want = _index_add(out, ids, values)
+    ids_c = torch.from_numpy(ids).to(cuda_device)
+    vals_c = torch.from_numpy(values).to(cuda_device)
+    base = torch.from_numpy(out).to(cuda_device)
+    buf = base.clone()
+    seg.segment_sum_cluster(buf, ids_c, vals_c)  # eager first: builds it
+    before = seg.segment_sum_cluster.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        buf.copy_(base)
+        seg.segment_sum_cluster(buf, ids_c, vals_c)
+    assert seg.segment_sum_cluster.launches == before + 1
+    for _ in range(3):
+        graph.replay()
+        np.testing.assert_array_equal(buf.cpu().numpy(), want)
 
 
 @pytest.mark.cuda
