@@ -307,12 +307,26 @@ Phases:
     sample_size=3072, whose 4*S*k = 184,320 terms pass the cluster's
     capacity, 20 iterations under replay: one tile sort and one tiled sum
     an iteration, no cluster launch; one step's calls and the graph's
-    unplanned spring_forces recorded for phase 25.
+    unplanned spring_forces recorded for phase 25;
+27. scale_main, run after phase 23 on its 12M graph (before the graph is
+    freed): GraphEmbedderTorch with the JAX scale scripts' settings and
+    init='random', whose ~70M fused refs pass K1's 2^24-ref bound: the
+    strategy must be fused binfold over n_seg >= 2 segments. On one
+    step's queries and fused refs, the segmented K1 (n_seg launches, the
+    segment ids lifted, one torch.topk merge) against the plain
+    per-segment fold and the same merge: each segment's bins and the
+    merged pairs bit-equal; its time per call and back to back, the folds
+    alone back to back, beside its bound. Then two replayed iterations
+    against the eager step from the same start on each replay's sample,
+    bit-equal, and 20 replayed iterations with the counts zeroed just
+    before: n_seg K1 launches and one cluster launch an iteration, finite
+    positions of std ~1; ms/iter, device ms/iter, peak memory and the
+    phase's seconds.
 
-Each main-path, quick-start, greedy, scatter-path (23), sharded and
-toolkit phase zeroes the kernels' launch counts just before its timed run
-and reads them just after; each layout path also fails unless the
-accumulator's cluster kernel ran exactly once an iteration (the
+Each main-path (5, 6, 18, 27), quick-start, greedy, scatter-path (23),
+sharded and toolkit phase zeroes the kernels' launch counts just before
+its timed run and reads them just after; each layout path also fails
+unless the accumulator's cluster kernel ran exactly once an iteration (the
 intersection repulsion's ids) and its tile sort not at all (phase 26: one
 tile sort an iteration and no cluster launch), and the main paths unless
 its sum ran exactly once an iteration for each static plan (a hub block
@@ -1649,6 +1663,167 @@ def phase_scatter_main(grt, adj, profile):
             lambda: grt.estimated_influence(adj, seeds, p=0.1, num_sims=64),
             ic_s * 1e3, 1)
     return launches
+
+
+def phase_scale_main(grt, bf, adj, fp32_instr_per_s, iters=20):
+    """Phase 27: the main path on phase 23's 12M graph (init='random',
+    the JAX scale scripts' settings), past K1's 2^24-ref bound: the
+    strategy must be fused binfold over n_seg >= 2 segments. On one step's
+    queries and fused refs (a sample of the phase's own) the segmented K1
+    against the plain per-segment fold (64 query rows a call) and the same
+    merge: each segment's bins and the merged (index, distance) pairs
+    bit-equal; its time per call and back to back (the whole segmented
+    call and the folds alone) beside its bound. Then run_layout: the
+    eager first iteration and the capture, two replayed iterations against
+    the eager step from the same start on each replay's sample, bit-equal,
+    and ``iters`` replayed iterations with the counts zeroed just before:
+    n_seg K1 launches and one cluster launch an iteration, finite
+    positions of std ~1. Returns the K1 launches and the K1 fields of the
+    segmented shape."""
+    from graphem_rapids_torch.ops.sampling import sample_indices
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with setup_split() as split:
+        t0 = time.perf_counter()
+        emb = grt.GraphEmbedderTorch(adj, n_components=3, seed=0,
+                                     verbose=False, init="random",
+                                     **FORCE_PARAMS)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+    split["other_s"] = init_s - sum(split.values())
+    R, k = int(len(emb._nb["ref_edge"])), emb._k_eff
+    T, G = bf.params_for(k, emb.knn_recall_target)
+    seg, n_seg = bf.segments(R, T)
+    emit("scale_setup", graph="ring_chords_12m", n=emb.n, E=emb.n_edges,
+         table=emb.table_kind, strategy=emb._strategy,
+         fused_refs=emb._fused_refs_active, refs=R, segment=seg,
+         n_seg=n_seg, init_s=init_s, split=split,
+         setup_peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if (emb._strategy != "binfold" or not emb._fused_refs_active
+            or n_seg < 2):
+        raise AssertionError(f"scale_main: {emb._strategy}, fused "
+                             f"{emb._fused_refs_active}, {n_seg} segments: "
+                             "want fused binfold over >= 2 segments")
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    sampled = sample_indices(gen, emb.n_edges, emb.sample_size,
+                             device=emb.device)
+    queries, refs = step_knn_inputs(emb, sampled)
+    bf.knn_binfold.launches = 0
+    got_i, got_v = bf.knn_binfold(queries, refs, k)
+    call_launches = bf.knn_binfold.launches
+    folds = []
+    kernel_fold = bf.binfold_bins
+
+    def plain_fold(q, r, T_, G_, n_super):
+        parts = [bf.binfold_bins_reference(q[i:i + 64], r, T_, G_, n_super)
+                 for i in range(0, q.shape[0], 64)]
+        pv = torch.cat([v for v, _ in parts])
+        pi = torch.cat([i for _, i in parts])
+        folds.append((r, G_, n_super, pv, pi))
+        return pv, pi
+
+    bf.binfold_bins = plain_fold
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_i, want_v = bf.knn_binfold(queries, refs, k)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        bf.binfold_bins = kernel_fold
+    rows, err = [], 0.0
+    for r, G_, n_super, pv, pi in folds:
+        kv, ki = bf.binfold_bins_cuda(queries, r, T, G_, n_super)
+        err = max(err, float((kv - pv).abs().max()))
+        rows.append(dict(E=r.shape[0], G=G_, n_super=n_super,
+                         bins_bit_equal=bool(torch.equal(kv, pv)
+                                             and torch.equal(ki, pi))))
+    merged = bool(torch.equal(got_i, want_i) and torch.equal(got_v, want_v))
+    # each segment's refs and geometry, as the segmented call folds them
+    plan = [(r, (g, ns)) for r, g, ns, _, _ in folds]
+    del folds
+    S, d = queries.shape
+    ms = cuda_ms(lambda: bf.knn_binfold(queries, refs, k))
+    b2b = back_to_back_ms(lambda: bf.knn_binfold(queries, refs, k))
+    b2b_folds = back_to_back_ms(
+        lambda: [bf.binfold_bins_cuda(queries, r, T, g, ns)
+                 for r, (g, ns) in plan])
+    # per pair 3d + 2 fp32 instructions, as phase 3 counts them
+    ops = sum((3 * d + 2) * S * ns * g * T for _, (g, ns) in plan)
+    nbytes = 4 * (S * d + R * d) + sum(8 * S * g * 128 for _, (g, _) in plan)
+    ops_ms = ops / fp32_instr_per_s * 1e3
+    bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    k1 = dict(S=S, refs=R, n_seg=n_seg, segment=seg, ms=ms,
+              back_to_back_ms=b2b, folds_back_to_back_ms=b2b_folds,
+              plain_ms=plain_ms, ops=ops, bytes=nbytes, ops_bound_ms=ops_ms,
+              bytes_bound_ms=bytes_ms, bound_ms=max(ops_ms, bytes_ms),
+              share_of_bound_back_to_back=max(ops_ms, bytes_ms) / b2b_folds,
+              max_abs_err=err)
+    emit("scale_kernel", name="knn_binfold", graph="ring_chords_12m",
+         launches_per_call=call_launches, segments=rows,
+         merged_bit_equal=merged, **k1)
+    if (call_launches != n_seg or not merged
+            or not all(r["bins_bit_equal"] for r in rows)):
+        raise AssertionError(f"scale_main: segmented K1 against its plain "
+                             f"version: {call_launches} launches for "
+                             f"{n_seg} segments, merged {merged}, {rows}")
+    del queries, refs, got_i, got_v, want_i, want_v, plan
+
+    emb.run_layout(1)  # the eager first iteration, then the capture
+    if emb._graph is None:
+        raise AssertionError("scale_main: run_layout did not capture")
+    p = emb._positions.clone()
+    replay_equal = True
+    for _ in range(2):
+        emb._iterate(1)
+        p = emb._raw_step(p, emb._graph_sample)
+        replay_equal &= bool(torch.equal(p, emb._positions))
+    emb._iteration += 2
+    del p
+    per_iter = (emb._ops["ov_plan"] is not None) + (
+        emb._ops["nb_overflow"] is not None)
+    torch.cuda.reset_peak_memory_stats()
+    bf.knn_binfold.launches = 0
+    with segment_launches("ring_chords_12m", iters, per_iter) as seg_count:
+        t0 = time.perf_counter()
+        pos = emb.run_layout(iters, block_size=iters)
+        dt = time.perf_counter() - t0
+    launches = bf.knn_binfold.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    emb._iterate(10)
+    ev[1].record()
+    torch.cuda.synchronize()
+    emb._iteration += 10
+    # in float64: a float32 sum over 12M rows loses the low terms
+    std = pos.astype(np.float64).std(axis=0, ddof=1)
+    emit("scale_main", graph="ring_chords_12m", n=emb.n, E=emb.n_edges,
+         n_seg=n_seg, iters=iters, replay_vs_eager_iters=2,
+         replay_bit_equal=replay_equal, binfold_launches=launches,
+         segment_cluster_launches=seg_count["cluster_launches"],
+         segment_sum_launches=seg_count["launches"], seconds=dt,
+         ms_per_iter=dt / iters * 1e3,
+         device_ms_per_iter=ev[0].elapsed_time(ev[1]) / 10,
+         edges_per_s=emb.n_edges * iters / dt, peak_mem_gib=peak,
+         reserved_gib=torch.cuda.memory_reserved() / 2**30,
+         finite=bool(np.isfinite(pos).all()), std=std.tolist(),
+         phase_seconds=time.perf_counter() - t_phase)
+    if launches != iters * n_seg:
+        raise AssertionError(f"scale_main: {launches} K1 launches in {iters} "
+                             f"iterations of {n_seg} segments")
+    if not replay_equal:
+        raise AssertionError("scale_main: replay differs from the eager step")
+    if pos.shape != (emb.n, 3) or not np.isfinite(pos).all():
+        raise AssertionError("scale_main: positions not finite")
+    if not np.allclose(std, 1.0, atol=1e-3):
+        raise AssertionError(f"scale_main: per-axis std {std} is not ~1")
+    del emb, pos
+    torch.cuda.empty_cache()
+    return launches, k1
 
 
 # the accumulator's sum and tile sort launches on each layout path (phases
@@ -3310,6 +3485,8 @@ def main(argv):
     adj12m = ring_chords_graph(SCATTER_N, 3 * SCATTER_N)
     scatter = phase_ic_scatter(fp32_instr_per_s, adj1m, adj12m)
     scatter_launches = phase_scatter_main(grt, adj12m, profile)
+    scale_launches, k1_scale = phase_scale_main(grt, bf, adj12m,
+                                                fp32_instr_per_s)
     del adj12m
     torch.cuda.empty_cache()
     starts = phase_spectral(log, [
@@ -3323,7 +3500,7 @@ def main(argv):
             phase_main(grt, bf, "ring_chords_1m", adj1m,
                        "binned+overflow plan", "auto", warmup=5,
                        profile=profile, log=log, checked=k1["checked"])]
-    launches = sum(run["launches"] for run in runs)
+    launches = scale_launches + sum(run["launches"] for run in runs)
     k2_launches, ic_launches = phase_quickstart(
         grt, bf, kp, "random_8_regular_100k", adj100k, "auto", warmup=5,
         profile=profile)
@@ -3408,6 +3585,10 @@ def main(argv):
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": None,
+        # phase 27's segmented call on the 12M graph's fused refs
+        "segmented": {key: k1_scale[key] for key in (
+            "refs", "n_seg", "ms", "back_to_back_ms", "plain_ms", "bound_ms",
+            "max_abs_err")},
     }, {
         "name": "knn_pallas",
         "route": "cuda",

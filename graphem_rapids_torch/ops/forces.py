@@ -531,6 +531,26 @@ def spring_forces_from_gathered(positions, pn, k_attr, L_min,
                                  overflow_plan, k_attr, L_min)
 
 
+def spring_forces_nbtable(positions, nb, k_attr, L_min,
+                          overflow_edges=None, overflow_plan=None):
+    """Spring forces through the dense neighbor table of
+    ``build_neighbor_table`` (a gather, then a row sum): for vertex v the
+    sum over u in N(v) of -k_attr (|u - v| - L_min) (u - v)/|u - v|, each
+    undirected edge seen once from each side. The overflow pairs, as
+    spring_forces_from_gathered takes them; arrays on the host are moved to
+    the positions' device."""
+    def put(a):
+        return None if a is None else torch.as_tensor(
+            a, device=positions.device)
+
+    if overflow_plan is not None:
+        overflow_plan = {k: v if k == "block" else put(v)
+                         for k, v in overflow_plan.items()}
+    pn = positions[put(nb["table"]).long()]
+    return spring_forces_from_gathered(positions, pn, k_attr, L_min,
+                                       put(overflow_edges), overflow_plan)
+
+
 def spring_forces_binned(positions, pn_list, buckets, k_attr, L_min,
                          overflow_edges=None, overflow_plan=None):
     """Spring forces over the degree-binned tables.
@@ -731,14 +751,16 @@ def _repulsion_terms(positions, edges_i, edges_j, weight, k_inter):
 
 
 def intersection_forces(positions, edges, knn_indices, sampled_indices,
-                        k_inter, edge_order=None):
+                        k_inter, pair_weight=None, edge_order=None):
     """Inverse-distance repulsion at geometrically intersecting edge pairs.
 
     The three candidate filters of the reference (i<j, no shared vertex,
     segments intersect) fold into one multiplicative 0/1 weight over the
-    fixed (S*k) candidate set. ``edge_order`` (E,) is the comparison key
-    for the i<j dedup when the engine renumbers edges internally: the
-    internal -> user edge-id map, so the dedup compares user ids.
+    fixed (S*k) candidate set. ``pair_weight`` (S*k,), when given, scales
+    that weight pair by pair (the JAX package's sharded path masks padded
+    candidates with it). ``edge_order`` (E,) is the comparison key for the
+    i<j dedup when the engine renumbers edges internally: the internal ->
+    user edge-id map, so the dedup compares user ids.
     """
     n = positions.shape[0]
     k = knn_indices.shape[1]
@@ -761,6 +783,8 @@ def intersection_forces(positions, edges, knn_indices, sampled_indices,
         positions[edges_j[:, 0]], positions[edges_j[:, 1]],
     )
     weight = (valid & ~share & intersects).to(positions.dtype)[:, None]
+    if pair_weight is not None:
+        weight = weight * pair_weight[:, None]
     vals = _repulsion_terms(positions, edges_i, edges_j, weight,
                             float(k_inter))
     ids = torch.cat([edges_i[:, 0], edges_i[:, 1], edges_j[:, 0],

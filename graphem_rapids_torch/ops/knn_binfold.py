@@ -315,6 +315,20 @@ def _binfold_segments(queries, refs, k, T, G, seg, n_seg):
     return torch.gather(idx, 1, pos), top
 
 
+def segments(E, T):
+    """(seg, n_seg): the bin fold over E refs launches once per segment of
+    seg refs. Up to MAX_REFS refs that is one segment of all E; past it,
+    as in the JAX package, n_seg equal segments, each a multiple of T and
+    at most MAX_REFS (sized against the largest T-multiple under it), the
+    last one short."""
+    if E <= MAX_REFS:
+        return E, 1
+    seg_max = (MAX_REFS // T) * T
+    n_seg = -(-E // seg_max)
+    seg_raw = -(-E // n_seg)
+    return -(-seg_raw // T) * T, n_seg
+
+
 def knn_binfold(queries, refs, k, T=None, G=None, recall_target=0.95):
     """Approximate kNN via the bin fold.
 
@@ -332,12 +346,9 @@ def knn_binfold(queries, refs, k, T=None, G=None, recall_target=0.95):
     T_auto, G_auto = params_for(k, recall_target)
     T_use, G_use = int(T or T_auto), int(G or G_auto)
     if E > MAX_REFS:
-        seg_max = (MAX_REFS // T_use) * T_use
-        n_seg = -(-E // seg_max)
-        seg_raw = -(-E // n_seg)
-        seg = -(-seg_raw // T_use) * T_use
+        seg, n_seg = segments(E, T_use)
         idx, vals = _binfold_segments(queries, refs, int(k), T_use, G_use,
-                                      int(seg), int(n_seg))
+                                      seg, n_seg)
         return idx.to(torch.int32), vals
     bins = min(G_use, -(-E // T_use)) * _LANES
     if k > bins:

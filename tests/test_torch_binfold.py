@@ -290,3 +290,28 @@ def test_kernel_ties_across_pieces(cuda_device):
     assert bool((ki < G_eff * T).all())
     pv, pi = tbf.binfold_bins_reference(qt[:64], rt[:G_eff * T], T, G_eff, 1)
     assert torch.equal(kv[:64], pv) and torch.equal(ki[:64], pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,max_refs", [(20_000, 4096), (9001, 2048)])
+def test_segmented_call_matches_plain(cuda_device, monkeypatch, E, max_refs):
+    """Past MAX_REFS (lowered here) knn_binfold launches the kernel once a
+    segment, lifts the ids and merges with one top-k: the same pairs as
+    the plain fold of each segment with the same merge, and n_seg
+    launches."""
+    monkeypatch.setattr(tbf, "MAX_REFS", max_refs)
+    monkeypatch.setattr(tbf, "MAX_REFS_SEGMENTED", max_refs * 16)
+    q, r = _inputs(64, E, 3, seed=5)
+    r[::41] = 1e30
+    qt = torch.from_numpy(q).to(cuda_device)
+    rt = torch.from_numpy(r).to(cuda_device)
+    T = 128
+    _, n_seg = tbf.segments(E, T)
+    assert n_seg >= 3
+    before = tbf.knn_binfold.launches
+    ki, kv = tbf.knn_binfold(qt, rt, 16, T=T, G=4)
+    torch.cuda.synchronize()
+    assert tbf.knn_binfold.launches == before + n_seg
+    monkeypatch.setattr(tbf, "binfold_bins", tbf.binfold_bins_reference)
+    pi, pv = tbf.knn_binfold(qt, rt, 16, T=T, G=4)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)

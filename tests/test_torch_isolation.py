@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no JAX, no JAX package, no networkx/pandas.
 
 The card's machine has PyTorch but no JAX, networkx, pandas, plotly or
-ndlib, so neither graphem_rapids_torch nor chip_smoke.py may import them,
-directly or through the JAX package. The optional packages are imported only
+ndlib, so neither graphem_rapids_torch nor chip_smoke.py nor
+scripts/torch_scale_tiers.py may import them or the JAX package's
+experiments, directly or through the JAX package. The optional packages are imported only
 inside the LAZY_IMPORTS functions, when they are called, so the import-time
 check forbids them and the source scan allows them only there.
 """
@@ -22,10 +23,10 @@ from graphem_rapids_torch import GraphEmbedderTorch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "graphem_rapids_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"
+    REPO / "chip_smoke.py", REPO / "scripts" / "torch_scale_tiers.py"
 ]
-FORBIDDEN = ("jax", "jaxlib", "graphem_rapids_tpu", "networkx", "pandas",
-             "plotly", "ndlib")
+FORBIDDEN = ("jax", "jaxlib", "graphem_rapids_tpu", "experiments", "networkx",
+             "pandas", "plotly", "ndlib")
 
 _spec = importlib.util.spec_from_file_location(
     "lintmod", REPO / "scripts" / "lint.py"
@@ -121,7 +122,8 @@ def test_no_forbidden_imports(path):
 @pytest.mark.fast
 def test_port_is_lint_clean(monkeypatch):
     monkeypatch.chdir(REPO)
-    assert lintmod.main(["graphem_rapids_torch", "chip_smoke.py"]) == 0
+    assert lintmod.main(["graphem_rapids_torch", "chip_smoke.py",
+                         "scripts/torch_scale_tiers.py"]) == 0
 
 
 @pytest.mark.fast

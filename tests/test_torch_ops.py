@@ -258,6 +258,57 @@ def test_intersection_forces_edge_order():
 
 
 @pytest.mark.fast
+def test_intersection_forces_pair_weight():
+    """JAX's pair_weight (its sharded path's mask of padded candidates)
+    scales each candidate pair's repulsion; all ones changes nothing."""
+    e, pos, sampled, knn_idx = _intersection_inputs(seed=11)
+    w = np.random.default_rng(4).uniform(0.0, 2.0, knn_idx.size)
+    w = w.astype(np.float32)
+    w[::5] = 0.0
+    got = tf.intersection_forces(_t(pos), _t(e), _t(knn_idx), _t(sampled),
+                                 K_INTER, pair_weight=_t(w)).numpy()
+    ref = np.asarray(jf.intersection_forces(
+        jnp.asarray(pos), jnp.asarray(e), jnp.asarray(knn_idx),
+        jnp.asarray(sampled), K_INTER, pair_weight=jnp.asarray(w)))
+    np.testing.assert_allclose(got, ref, **TOL)
+    plain = tf.intersection_forces(_t(pos), _t(e), _t(knn_idx), _t(sampled),
+                                   K_INTER).numpy()
+    ones = tf.intersection_forces(_t(pos), _t(e), _t(knn_idx), _t(sampled),
+                                  K_INTER,
+                                  pair_weight=torch.ones(knn_idx.size))
+    np.testing.assert_array_equal(ones.numpy(), plain)
+    assert not np.allclose(got, plain)
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("cap,form", [(None, "coo"), (3, "coo"),
+                                      (3, "plan")])
+def test_spring_forces_nbtable(cap, form):
+    """spring_forces_nbtable on build_neighbor_table's host table against
+    JAX's and the oracle, with the COO overflow or the block-fold plan
+    (tests/test_oracle_parity.py's cases for JAX's)."""
+    e, n, pos = _graph(seed=3)
+    nb_t = tf.build_neighbor_table(e, n, cap=cap)
+    nb_j = jf.build_neighbor_table(e, n, cap=cap)
+    if cap is not None:
+        assert len(nb_t["overflow"]) > 0
+    ov_t = ov_j = plan_t = plan_j = None
+    if form == "plan":
+        plan_t = tf.build_overflow_plan(nb_t["overflow"])
+        plan_j = jf.build_overflow_plan(nb_j["overflow"])
+        assert plan_t is not None
+    elif len(nb_t["overflow"]):
+        ov_t, ov_j = nb_t["overflow"], jnp.asarray(nb_j["overflow"])
+    got = tf.spring_forces_nbtable(_t(pos), nb_t, K_ATTR, L_MIN, ov_t,
+                                   plan_t).numpy()
+    ref = np.asarray(jf.spring_forces_nbtable(
+        jnp.asarray(pos), nb_j, K_ATTR, L_MIN, ov_j, _plan_j(plan_j)))
+    orc = oracle.spring_forces_np(pos.astype(np.float64), e, K_ATTR, L_MIN)
+    np.testing.assert_allclose(got, ref, **TOL)
+    np.testing.assert_allclose(got, orc, **TOL)
+
+
+@pytest.mark.fast
 @pytest.mark.parametrize("d", [2, 3])
 def test_segments_intersect_exact(d):
     rng = np.random.default_rng(d)
