@@ -284,7 +284,11 @@ Phases:
     intersection repulsion's 4*S*k terms of d=3 (30,720 into 100K and 1M
     rows, 'approx''s 98,304: the cluster form; 184,320 at sample_size=3072
     and the spring's 799,968: the tiled form), the 1M block plan's hub
-    blocks (the static form). Each is run twice through segment_sum (or
+    blocks (the static form), and the static form's long runs: built in
+    numpy from the scale tiers' heavy-tail graph (skewed_1m: ring + 3M
+    zipf(1.6) chords), its layout step's hub block plan (84,827 blocks of
+    32 onto 14,996 hubs, the widest 22,841; d=3) and its Chebyshev SpMV's
+    (s=8), random values from a seed. Each is run twice through segment_sum (or
     segment_sum_sorted) and once by index_add_ on the CPU, bit-equal, with
     one cluster launch a cluster-form call and one tile sort and one sum a
     tiled one; a cluster-form call also equals its plain version (a stable
@@ -302,7 +306,9 @@ Phases:
     searchsorted offsets, torch.segment_reduce), and the bounds (each id,
     value and touched row read once and each touched row written once; the
     sort's ids read, keys, places and touched mask words written, against
-    its compare-exchanges);
+    its compare-exchanges; a static call's order floor, its longest run of
+    dependent adds at 4 cycles and the card's top SM clock). The summary's
+    static entry is the heavy-tail step plan's call;
 26. the tiled form on a layout path, before phase 25: the 100K graph at
     sample_size=3072, whose 4*S*k = 184,320 terms pass the cluster's
     capacity, 20 iterations under replay: one tile sort and one tiled sum
@@ -371,6 +377,12 @@ GREEDY_LARGE_N = 20_000
 SCATTER_N = 12_000_000
 # The H100 SXM's device memory rate (bytes/s), for the accumulator's bound
 MEM_BYTES_PER_S = 3.35e12
+# cycles of one dependent fp32 add: the static sum's order floor is a row's
+# longest run of them at the card's top SM clock
+FADD_CYCLES = 4
+# phase 25's heavy-tail graph (experiments/bench_1m_skewed.py, the scale
+# tiers' skewed_1m): ring + 3M chords, the first endpoint a zipf(1.6) rank
+SKEWED_N, SKEWED_CHORDS, SKEWED_ZIPF_A = 1_000_000, 3_000_000, 1.6
 # the host's CUDA calls that put work on a stream, counted by --profile
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
@@ -491,6 +503,76 @@ def ring_chords_graph(n=1_000_000, chords=3_000_000, seed=0):
     a = sp.coo_matrix((np.ones(len(e)), (i, j)), shape=(n, n)).tocsr()
     a.data[:] = 1
     return a + a.T
+
+
+def skewed_graph(n=SKEWED_N, chords=SKEWED_CHORDS, seed=0):
+    """Ring + ``chords`` chords whose first endpoint is a zipf(1.6) rank
+    (low ids become hubs of up to 731K edges): the heavy-tail graph of
+    experiments/bench_1m_skewed.py, built as scripts/torch_scale_tiers.py
+    builds its skewed_1m tier."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    ring = np.column_stack([np.arange(n), (np.arange(n) + 1) % n])
+    za = np.minimum(rng.zipf(SKEWED_ZIPF_A, chords), n) - 1
+    zb = rng.integers(0, n, chords)
+    ch = np.column_stack([za, zb])
+    ch = ch[ch[:, 0] != ch[:, 1]]
+    e = np.concatenate([ring, ch])
+    i, j = np.minimum(e[:, 0], e[:, 1]), np.maximum(e[:, 0], e[:, 1])
+    a = sp.coo_matrix((np.ones(len(e)), (i, j)), shape=(n, n)).tocsr()
+    a.data[:] = 1
+    return a + a.T
+
+
+def binned_tables(adj):
+    """The binned neighbour tables of ``adj`` as the engine builds them for
+    the layout step (as constructed with the defaults)."""
+    from graphem_rapids_torch.models.embedder import csr_upper_edges
+    from graphem_rapids_torch.ops import knn_binfold as bf
+    from graphem_rapids_torch.ops.forces import build_neighbor_table_binned
+
+    return build_neighbor_table_binned(
+        csr_upper_edges(adj), adj.shape[0], overhead_rows=4096,
+        ref_order="row", ref_budget=bf.MAX_REFS_SEGMENTED - 1)
+
+
+def hub_plan(adj, spmv=False):
+    """The hub block plan of ``adj`` as the engine builds it for the
+    layout step (``binned_tables``), or, with ``spmv``, as its spectral
+    init builds it for the Chebyshev SpMV."""
+    import scipy.sparse as sp
+
+    from graphem_rapids_torch.ops import laplacian as lap
+
+    if spmv:
+        A = sp.csr_matrix(adj + adj.transpose())
+        A.data = np.ones_like(A.data)
+        A.setdiag(0)
+        A.eliminate_zeros()
+        return lap._adjacency_matvec_plan(A)["ov_plan"]
+    return binned_tables(adj)["overflow_plan"]
+
+
+def skewed_static_calls():
+    """Phase 25's two static calls of the heavy-tail graph, with random
+    values from a seed and rows from zero, as their callers start them:
+    the layout step's hub block plan (``apply_overflow_plan``: its
+    block_hub as the engine builds and uploads it, d=3) and the Chebyshev
+    SpMV's (``_overflow_correct``, s=8 columns). Entries as RECORDED_SUMS
+    holds them."""
+    adj = skewed_graph()
+    gen = torch.Generator().manual_seed(5)
+    calls = []
+    for label, spmv, d in (("skewed_1m hub plan", False, 3),
+                           ("skewed_1m chebyshev hub plan", True, 8)):
+        plan = hub_plan(adj, spmv)
+        keys = torch.as_tensor(np.asarray(plan["block_hub"])).long()
+        rows = len(plan["hub_ids"])
+        calls.append((label, "static", torch.zeros(rows, d, device="cuda"),
+                      keys.cuda(), torch.randn(len(keys), d,
+                                               generator=gen).cuda(), None))
+    return calls
 
 
 def hub_chords_graph(n=100_000, chords=300_000, hubs=(20_000, 10_000, 5_000),
@@ -2260,14 +2342,18 @@ def phase_tiled(grt, label, adj, iters=20):
     RECORDED_SUMS.extend((f"{label} spring_forces", *c) for c in got)
 
 
-def phase_kernel_segment(seg, calls, mem_bytes_per_s, fp32_instr_per_s):
+def phase_kernel_segment(seg, calls, mem_bytes_per_s, fp32_instr_per_s,
+                         clock_hz, long_label):
     """Phase 25: the accumulator's kernels against their plain versions on
-    the CPU, on the calls recorded from every layout path. Returns the
-    kernel summaries of the cluster kernel (the first cluster-form call
-    recorded: the intersection repulsion's 30,720 terms into 100K rows),
-    of the sum (the first static call: the 1M hub block plan) and of the
-    tile sort (the first call past the cluster's capacity), each with the
-    largest error over every call of its kernel."""
+    the CPU, on the calls recorded from every layout path and the heavy-tail
+    graph's two hub plans. Returns the kernel summaries of the cluster
+    kernel (the first cluster-form call recorded: the intersection
+    repulsion's 30,720 terms into 100K rows), of the static sum (the call
+    labelled ``long_label``: the heavy-tail graph's step plan, whose widest
+    hub is the longest run) and of the tile sort (the first call past the
+    cluster's capacity), each with the largest error over every call of its
+    kernel. A static call also gives its order floor: its longest run of
+    dependent adds at FADD_CYCLES each and ``clock_hz``."""
     most = seg.cluster_max_terms(torch.device("cuda"))
     summary = {}
     err = {"cluster": 0.0, "sum": 0.0, "sort": 0.0}
@@ -2338,6 +2424,12 @@ def phase_kernel_segment(seg, calls, mem_bytes_per_s, fp32_instr_per_s):
                                        mem_bytes_per_s, fp32_instr_per_s))
             err["sort"] = max(err["sort"], fields["sort_max_abs_err"])
         touched = int(np.unique(ids_c.numpy()).size)
+        if form == "static":
+            _, runs = torch.unique_consecutive(ids_c, return_counts=True)
+            longest = int(runs.max()) if runs.numel() else 0
+            fields.update(longest_run=longest,
+                          order_bound_ms=longest * FADD_CYCLES / clock_hz
+                          * 1e3)
         d = out.shape[1] if out.ndim == 2 else 1
         io_bytes = (ids.numel() * ids.element_size()
                     + (0 if perm is None else perm.numel() * 8)
@@ -2363,7 +2455,7 @@ def phase_kernel_segment(seg, calls, mem_bytes_per_s, fp32_instr_per_s):
                 f"{want_launches}")
         key = {"cluster": "cluster", "static": "sum", "tiled": "sort"}[form]
         err[key] = max(err[key], e)
-        if key not in summary:
+        if key not in summary and (key != "sum" or label == long_label):
             summary[key] = dict(
                 ms=ms, back_to_back_ms=b2b, replayed_ms=replayed,
                 plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
@@ -2372,6 +2464,11 @@ def phase_kernel_segment(seg, calls, mem_bytes_per_s, fp32_instr_per_s):
                 deterministic_library_ms=library_det["ms"],
                 deterministic_library_replayed_ms=library_det["replayed_ms"],
                 deterministic_library_bit_equal=library_det["bit_equal_cpu"])
+            if key == "sum":
+                summary[key].update(
+                    path=label, terms=len(ids), d=d,
+                    longest_run=fields["longest_run"],
+                    order_bound_ms=fields["order_bound_ms"])
             if key == "sort":
                 summary[key] = dict(
                     ms=fields["sort_kernel_ms"],
@@ -3566,8 +3663,10 @@ def main(argv):
             dist.destroy_process_group()
     launches += phase_toolkit(grt, bf, log, k1["checked"])
     phase_tiled(grt, "random_8_regular_100k", adj100k)
+    RECORDED_SUMS.extend(skewed_static_calls())
     acc = phase_kernel_segment(seg, RECORDED_SUMS, MEM_BYTES_PER_S,
-                               fp32_instr_per_s)
+                               fp32_instr_per_s, clock_mhz * 1e6,
+                               "skewed_1m hub plan")
     RECORDED_SUMS.clear()
     phase_multi_card(profile=profile)
     log.take("smoke run")
@@ -3652,7 +3751,7 @@ def main(argv):
         "name": "segment_sum",
         "route": "cuda",
         "source": "graphem_rapids_torch/csrc/segment_sum.cu",
-        "replaces": "graphem_rapids_tpu/ops/forces.py:1210",
+        "replaces": "graphem_rapids_tpu/ops/forces.py:922",
         "launches": sum(PATH_SEGMENT_LAUNCHES),
         **acc["sum"],
     }, {

@@ -78,15 +78,40 @@
 //   sorted positions at once and then the values of those in the run.
 //   Every other thread returns at once.
 //
-// A static plan's ids come sorted once as one tile, with no mask, and take
-// `segment_sum_kernel` alone. Keys equal to the largest value of their type
-// pad the last tile and are skipped.
+//   Keys equal to the largest value of their type pad the last tile and are
+//   skipped.
+//
+// A static plan's keys come sorted once (the hub block plans' `block_hub`,
+// the COO overflow tails, the scatter plan), so each row's terms are one
+// run of consecutive places, and `static_sum_kernel` takes them in one
+// launch. Its bound on an H100 is not the bytes (1.7 MB at the 1M
+// heavy-tail graph's hub plan: 0.5 us) but the order: a row's adds are one
+// chain of dependent __fadd_rn, 22,841 for that plan's widest hub, 0.046 ms
+// at 4 cycles each and 1980 MHz. So the design keeps that chain fed and
+// starts it at once. A warp takes 32 consecutive places, a lane each; a
+// lane whose key differs from the one before it starts a run. On a call
+// whose terms are its values in key order, 8 columns at most (the hub
+// block plans, the COO tails), a run is long when the key kLongRun - 1 = 63
+// places on is still its own (all three keys read in one round trip), and
+// a warp holds one long run's start at most. A search of 32 probes a round
+// (doubling steps, then 32-way splits: four rounds for 22,841) finds the
+// run's end, and the warp streams the run's values through a ring of slots
+// of kStage terms in its shared memory while lane c adds column c of each
+// staged term in order, so that the only chain left is the adds and up to 8
+// columns add side by side. A stage is one slab of floats, which one bulk
+// copy of the tensor memory accelerator brings, completing on the slot's
+// mbarrier, issued amid the adds of the stage before. Every other run (a
+// short one; any run of a call with a perm or more than 8 columns) is added
+// by the lane at its start as the tiled sum's owner does (`add_run`). The
+// hub plans' launches (663 blocks of 4 warps at 84,827 terms) are resident
+// at once on an H100, so every long run starts at once.
 //
 // Each kernel is held bit-equal to the CPU's index_add_ and to its plain
 // version in ops/segment.py (`segment_sum_cluster_reference`: one stable
 // sort of the whole id list, then the ascending loop; `sort_tiles_reference`
-// and `segment_sum_reference`) by the CPU tests, which model the kernels'
-// orders in numpy, by `python -m pytest --noconftest -m cuda
+// and `segment_sum_reference`; `static_runs_reference` is the static
+// kernel's table of runs) by the CPU tests, which model the kernels' orders
+// in numpy, by `python -m pytest --noconftest -m cuda
 // tests/test_torch_determinism.py` on a card, and by phase 25 of
 // chip_smoke.py on every layout path's own calls.
 
@@ -201,8 +226,8 @@ __device__ __forceinline__ long long add_run(
   }
 }
 
-// One thread per sorted position of T tiles of L keys; `mask` (T > 1)
-// holds each key's tiles, W words a key.
+// One thread per sorted position of T > 1 tiles of L keys; `mask` holds
+// each key's tiles, W words a key.
 template <typename K>
 __global__ void __launch_bounds__(kThreads)
     segment_sum_kernel(const K* __restrict__ keys,
@@ -218,10 +243,9 @@ __global__ void __launch_bounds__(kThreads)
   const K* tile = keys + t * L;
   const K key = tile[i];
   if (key == pad_key<K>() || (i > 0 && tile[i - 1] == key)) return;
-  const unsigned long long* words = nullptr;
-  if (mask != nullptr) {
-    // the row's first tile: the lowest bit of its first nonzero word
-    words = mask + static_cast<long long>(key) * W;
+  // the row's first tile: the lowest bit of its first nonzero word
+  const unsigned long long* words = mask + static_cast<long long>(key) * W;
+  {
     int w = 0;
     while (words[w] == 0) ++w;
     if (64 * w + __ffsll(static_cast<long long>(words[w])) - 1 != t) return;
@@ -237,47 +261,288 @@ __global__ void __launch_bounds__(kThreads)
       if (c < nc) acc[c] = dst[c];
     }
     add_run(acc, nc, tile, L, key, perm, values, t * L, i, d, c0);
-    if (words != nullptr) {
-      // the later tiles of the mask, kBatch at a time in tile order: bits
-      // above t in word t / 64, then the words after it
-      int w = t >> 6;
-      unsigned long long rest = words[w] & ~((2ull << (t & 63)) - 1);
-      while (true) {
-        int u[kBatch];
-        long long at[kBatch];
-        int got = 0;
+    // the later tiles of the mask, kBatch at a time in tile order: bits
+    // above t in word t / 64, then the words after it
+    int w = t >> 6;
+    unsigned long long rest = words[w] & ~((2ull << (t & 63)) - 1);
+    while (true) {
+      int u[kBatch];
+      long long at[kBatch];
+      int got = 0;
 #pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          while (rest == 0 && w + 1 < W) rest = words[++w];
-          u[b] = -1;
-          at[b] = 0;
-          if (rest != 0) {
-            u[b] = 64 * w + __ffsll(static_cast<long long>(rest)) - 1;
-            rest &= rest - 1;
-            ++got;
-          }
+      for (int b = 0; b < kBatch; ++b) {
+        while (rest == 0 && w + 1 < W) rest = words[++w];
+        u[b] = -1;
+        at[b] = 0;
+        if (rest != 0) {
+          u[b] = 64 * w + __ffsll(static_cast<long long>(rest)) - 1;
+          rest &= rest - 1;
+          ++got;
         }
-        if (got == 0) break;
-        // at[b]: the number of keys below `key` in tile u[b]
-        for (long long step = top; step > 0; step >>= 1) {
-#pragma unroll
-          for (int b = 0; b < kBatch; ++b) {
-            if (u[b] >= 0 && at[b] + step <= L &&
-                keys[u[b] * L + at[b] + step - 1] < key) {
-              at[b] += step;
-            }
-          }
-        }
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          if (u[b] >= 0) {
-            add_run(acc, nc, keys + u[b] * L, L, key, perm, values,
-                    u[b] * L, at[b], d, c0);
-          }
-        }
-        if (got < kBatch) break;
       }
+      if (got == 0) break;
+      // at[b]: the number of keys below `key` in tile u[b]
+      for (long long step = top; step > 0; step >>= 1) {
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          if (u[b] >= 0 && at[b] + step <= L &&
+              keys[u[b] * L + at[b] + step - 1] < key) {
+            at[b] += step;
+          }
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (u[b] >= 0) {
+          add_run(acc, nc, keys + u[b] * L, L, key, perm, values,
+                  u[b] * L, at[b], d, c0);
+        }
+      }
+      if (got < kBatch) break;
     }
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      if (c < nc) dst[c] = acc[c];
+    }
+  }
+}
+
+// The static form: one warp per 32 sorted places, kStaticWarps a block.
+constexpr int kStaticWarps = 4;
+constexpr int kStaticThreads = 32 * kStaticWarps;
+// Runs of this many places or more are streamed by a warp (set from a sweep
+// on an H100; ops/segment.py's LONG_RUN mirrors it). A run that long covers
+// the rest of its warp's 32 places, so a warp holds one long run's start at
+// most.
+constexpr int kLongRun = 64;
+static_assert(kLongRun > 32, "one long run a warp at most");
+constexpr int kStage = 128;     // terms a stage of a streamed run
+constexpr int kStreamCols = 8;  // the most columns a streamed run has
+// floats of a slot a column: a stage's kStage terms and the 16-byte words
+// a bulk copy takes on either side; slots stay 16-byte aligned
+constexpr int kColStride = kStage + 4;
+// a warp's ring: two slots of kStreamCols columns, more of fewer
+constexpr int kRingFloats = 2 * kColStride * kStreamCols;
+constexpr int kMaxSlots = 16;   // slots of one column
+constexpr int kAhead = 8;       // reads of a slot ahead of the adds
+static_assert(kStage % kAhead == 0, "whole groups");
+
+// Slots of nc <= kStreamCols columns in a ring: a power of 2, 2 at least.
+__host__ __device__ constexpr int ring_slots(int nc) {
+  return nc == 1 ? 16 : nc == 2 ? 8 : nc <= 4 ? 4 : 2;
+}
+static_assert(ring_slots(1) <= kMaxSlots &&
+                  ring_slots(1) * kColStride <= kRingFloats &&
+                  ring_slots(2) * kColStride * 2 <= kRingFloats &&
+                  ring_slots(4) * kColStride * 4 <= kRingFloats,
+              "the slots fit the ring");
+
+// Shared memory of a static block: each warp's ring, then each warp's
+// kMaxSlots mbarriers (34,304 bytes: under the 48 KB a launch takes
+// without an attribute).
+__host__ __device__ constexpr int static_smem_bytes() {
+  return kStaticWarps * (kRingFloats * 4 + kMaxSlots * 8);
+}
+
+// Waits until the phase of parity `parity` of the mbarrier `bar` completes.
+__device__ __forceinline__ void wait_parity(unsigned long long* bar,
+                                            unsigned parity) {
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(at), "r"(parity)
+        : "memory");
+  }
+}
+
+// The end of the run of `key` that holds sorted place `lo` (keys[lo] ==
+// key): the first place after it whose key differs, or N. Warp-wide, all
+// lanes with the same arguments; keys ascend, so the places of the run are
+// a prefix of those probed. Lane l first probes lo + 2^l, then each round
+// splits what is left in 32 steps and lane l probes step l + 1.
+template <typename K>
+__device__ long long run_end(const K* __restrict__ keys, long long N,
+                             long long lo, K key, int lane) {
+  long long hi = N;
+  {
+    const long long q = lo + (1ll << lane);
+    const int m = __popc(__ballot_sync(0xffffffffu, q < N && keys[q] == key));
+    const long long base = lo;
+    if (m > 0) lo = base + (1ll << (m - 1));
+    if (m < 32) hi = min(N, base + (1ll << m));
+  }
+  while (hi - lo > 1) {
+    const long long step = (hi - lo + 31) / 32;
+    const long long q = lo + step * (lane + 1);
+    const int m = __popc(__ballot_sync(0xffffffffu, q < hi && keys[q] == key));
+    hi = min(hi, lo + step * (m + 1));
+    lo += step * m;
+  }
+  return hi;
+}
+
+// Lane 0 (`leader`) sets the mbarrier at shared address `bar` to expect
+// `bytes` and has the tensor memory accelerator copy them from `src` to
+// shared address `dst`, completing on it; the other lanes run the same
+// instructions predicated off, so the warp does not diverge.
+__device__ __forceinline__ void bulk_copy(bool leader, unsigned bar,
+                                          unsigned dst, const float* src,
+                                          unsigned bytes) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %4, 0;\n"
+      " @p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %3;\n"
+      " @p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%1], [%2], %3, [%0];\n}\n" ::"r"(bar),
+      "r"(dst), "l"(src), "r"(bytes), "r"(static_cast<int>(leader))
+      : "memory");
+}
+
+// acc plus the kStage terms of a slot, v[t * nc] for t = 0, 1, ..., in
+// order, kAhead reads ahead of the adds; `mid` runs after the first group.
+template <typename F>
+__device__ __forceinline__ float add_stage(float acc, const float* v, int nc,
+                                           F mid) {
+  float x[kAhead];
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) x[j] = v[j * nc];
+#pragma unroll
+  for (int g = 1; g < kStage / kAhead; ++g) {
+    float y[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) y[j] = v[(kAhead * g + j) * nc];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) acc = __fadd_rn(acc, x[j]);
+    if (g == 1) mid();
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) x[j] = y[j];
+  }
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) acc = __fadd_rn(acc, x[j]);
+  return acc;
+}
+
+// Lane c < d of the warp adds column c of the values of sorted places
+// [p, e) (the run of row `row`, its terms in place order, d <=
+// kStreamCols, values 16-byte aligned) onto out[row], in order, through its
+// ring `buf` of S = ring_slots(d) slots of kStage terms. A stage's terms
+// are one slab of floats: lane 0 copies it by one bulk copy of the tensor
+// memory accelerator, from the 16-byte word at or below its start to the
+// one at or above its end (inside the allocation, which holds whole 16-byte
+// words), completing on the slot's mbarrier in `bars`, S - 1 stages ahead;
+// it issues each copy amid the adds of the stage before, into the slot
+// freed by the stage before that. Only the adding lanes take part. The
+// mbarriers are fresh, so stage k completes phase k / S of its slot.
+__device__ void stream_run(const float* __restrict__ values,
+                           float* __restrict__ out, long long p, long long e,
+                           long long row, int d, float* buf,
+                           unsigned long long* bars, int lane) {
+  if (lane >= d) return;
+  const long long n = e - p;
+  const int n_st = static_cast<int>((n + kStage - 1) / kStage);
+  const int S = ring_slots(d);
+  const unsigned adders = (1u << d) - 1u;
+  // the 16-byte word at or below stage s's first float
+  auto first_word = [&](int s) {
+    return (p + static_cast<long long>(s) * kStage) * d & ~3ll;
+  };
+  auto issue = [&](int s) {
+    const long long q1 = min(p + static_cast<long long>(s + 1) * kStage, e);
+    const long long a0 = first_word(s), a1 = (q1 * d + 3) & ~3ll;
+    const int i = s & (S - 1);
+    bulk_copy(lane == 0 && s < n_st,
+              static_cast<unsigned>(__cvta_generic_to_shared(bars + i)),
+              static_cast<unsigned>(
+                  __cvta_generic_to_shared(buf + i * kColStride * d)),
+              values + a0, static_cast<unsigned>((a1 - a0) * 4));
+  };
+  for (int s = 0; s < S - 1; ++s) issue(s);
+  float acc = out[row * d + lane];
+  for (int k = 0; k < n_st; ++k) {
+    const int i = k & (S - 1);
+    wait_parity(bars + i, static_cast<unsigned>(k / S) & 1);
+    const float* v =
+        buf + i * kColStride * d +
+        ((p + static_cast<long long>(k) * kStage) * d - first_word(k)) + lane;
+    const long long left = n - static_cast<long long>(k) * kStage;
+    if (left >= kStage) {
+      // stage k + S - 1 takes the slot that stage k - 1 held
+      acc = add_stage(acc, v, d, [&] { issue(k + S - 1); });
+    } else {
+      for (int t = 0; t < left; ++t) acc = __fadd_rn(acc, v[t * d]);
+    }
+    __syncwarp(adders);  // the slot is read before it is refilled
+  }
+  out[row * d + lane] = acc;
+}
+
+// Places [32 w, 32 w + 32) of the N sorted keys go to warp w of the grid: a
+// place whose key differs from the one before it starts a run. Where a call
+// can stream (no perm, d <= kStreamCols, 16-byte aligned values), a run of
+// kLongRun places or more is long: the key kLongRun - 1 places on is its
+// own (all three keys read in one round trip), and the warp finds its end
+// (run_end) and streams it (stream_run). Every other run is added by the
+// lane at its start (add_run). Dynamic shared memory: static_smem_bytes().
+// Six blocks an SM (at most 85 registers): 792 at once on an H100, the 1M
+// heavy-tail graph's 663 among them.
+template <typename K>
+__global__ void __launch_bounds__(kStaticThreads, 6)
+    static_sum_kernel(const K* __restrict__ keys,
+                      const long long* __restrict__ perm,
+                      const float* __restrict__ values,
+                      float* __restrict__ out, long long N, int d) {
+  extern __shared__ __align__(16) float stage[];
+  const int lane = threadIdx.x & 31;
+  const long long p =
+      static_cast<long long>(blockIdx.x) * kStaticThreads + threadIdx.x;
+  const bool in = p < N;
+  const bool streams = perm == nullptr && d <= kStreamCols &&
+                       (reinterpret_cast<uintptr_t>(values) & 15) == 0;
+  const bool reach = streams && in && p + kLongRun - 1 < N;
+  K key = pad_key<K>(), before = pad_key<K>(), probe = pad_key<K>();
+  if (in) key = keys[p];
+  if (in && p > 0) before = keys[p - 1];
+  if (reach) probe = keys[p + kLongRun - 1];
+  const bool start = in && key != pad_key<K>() && (p == 0 || before != key);
+  const bool is_long = start && reach && probe == key;
+  const unsigned longs = __ballot_sync(0xffffffffu, is_long);
+  if (longs != 0) {
+    const int w = threadIdx.x >> 5;
+    unsigned long long* bars =
+        reinterpret_cast<unsigned long long*>(stage +
+                                              kStaticWarps * kRingFloats) +
+        w * kMaxSlots;
+    if (lane == 0) {
+      for (int i = 0; i < ring_slots(d); ++i) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                         static_cast<unsigned>(
+                             __cvta_generic_to_shared(bars + i)))
+                     : "memory");
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp();
+    const int src = __ffs(longs) - 1;
+    const long long q = __shfl_sync(0xffffffffu, p, src);
+    const K k = __shfl_sync(0xffffffffu, key, src);
+    const long long e = run_end(keys, N, q + kLongRun - 1, k, lane);
+    stream_run(values, out, q, e, static_cast<long long>(k), d,
+               stage + w * kRingFloats, bars, lane);
+  }
+  if (!start || is_long) return;
+  for (int c0 = 0; c0 < d; c0 += kCols) {
+    const int nc = min(kCols, d - c0);
+    float* dst = out + static_cast<long long>(key) * d + c0;
+    float acc[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      if (c < nc) acc[c] = dst[c];
+    }
+    add_run(acc, nc, keys, N, key, perm, values, 0, p, d, c0);
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       if (c < nc) dst[c] = acc[c];
@@ -668,38 +933,57 @@ extern "C" int graphem_segment_sort_tiles_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the row sums on `stream` and returns cudaGetLastError() (0 on
-// success). keys (T * L,) are T tiles of L, each sorted ascending, int32
-// (key_bytes 4) or int64 (8), each in [0, rows of out) or the type's
-// largest value (a pad, skipped); T > 1 takes the tile sort's mask
-// (rows, W), W = ceil(T / 64), and T == 1 none (null). perm (T * L,)
-// int64 gives the term of each sorted position within its tile (tile t's
-// position j holds term t * L + perm[t * L + j]), or is null for terms in
-// key order; values (terms, d) and out (rows, d) are contiguous fp32, and
-// out is updated in place. The wrapper checks shapes, types and devices,
-// and launches nothing without terms.
-extern "C" int graphem_segment_sum_launch(const void* keys, int key_bytes,
+// Launches the tiled row sums on `stream` and returns cudaGetLastError() (0
+// on success). keys (T * L,) int32 are T > 1 tiles of L, each sorted
+// ascending, each in [0, rows of out) or 2^31 - 1 (a pad, skipped), with
+// the tile sort's mask (rows, W), W = ceil(T / 64). perm (T * L,) int64
+// gives the term of each sorted position within its tile (tile t's
+// position j holds term t * L + perm[t * L + j]); values (terms, d) and out
+// (rows, d) are contiguous fp32, and out is updated in place. The wrapper
+// checks shapes, types and devices, and launches nothing without terms.
+// (One sorted tile is a static call: graphem_segment_sum_sorted_launch.)
+extern "C" int graphem_segment_sum_launch(const int32_t* keys,
                                           const long long* perm,
                                           const unsigned long long* mask,
                                           int W, const float* values,
                                           float* out, int T, long long L,
                                           int d, void* stream) {
-  if (T < 1 || L < 1 || d < 1 || (key_bytes != 4 && key_bytes != 8) ||
-      ((T > 1) != (mask != nullptr)) || (T > 1 && W != (T + 63) / 64)) {
+  if (T < 2 || L < 1 || d < 1 || mask == nullptr || W != (T + 63) / 64) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long blocks = (T * L + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  segment_sum_kernel<int32_t>
+      <<<static_cast<unsigned>(blocks), kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(keys, perm, mask, W, values,
+                                              out, T, L, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the static form on `stream` and returns cudaGetLastError() (0 on
+// success): keys (N,) sorted ascending, int32 (key_bytes 4) or int64 (8),
+// each in [0, rows of out); perm (N,) int64 the term of each place, or null
+// for terms in key order; values (terms, d) and out (rows, d) contiguous
+// fp32, out updated in place. One launch of ceil(N / 128) blocks, under
+// 48 KB of shared memory each, so no attribute needs setting before a
+// capture.
+extern "C" int graphem_segment_sum_sorted_launch(
+    const void* keys, int key_bytes, const long long* perm,
+    const float* values, float* out, long long N, int d, void* stream) {
+  if (N < 1 || d < 1 || (key_bytes != 4 && key_bytes != 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long blocks = (N + kStaticThreads - 1) / kStaticThreads;
+  if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>(blocks);
+  const size_t smem = static_cast<size_t>(static_smem_bytes());
   if (key_bytes == 4) {
-    segment_sum_kernel<int32_t><<<grid, kThreads, 0, st>>>(
-        static_cast<const int32_t*>(keys), perm, mask, W, values, out, T, L,
-        d);
+    static_sum_kernel<int32_t><<<grid, kStaticThreads, smem, st>>>(
+        static_cast<const int32_t*>(keys), perm, values, out, N, d);
   } else {
-    segment_sum_kernel<int64_t><<<grid, kThreads, 0, st>>>(
-        static_cast<const int64_t*>(keys), perm, mask, W, values, out, T, L,
-        d);
+    static_sum_kernel<int64_t><<<grid, kStaticThreads, smem, st>>>(
+        static_cast<const int64_t*>(keys), perm, values, out, N, d);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,15 +43,22 @@ as ``out.index_add_(0, ids, values)`` does:
   the scatter plan, the tables' COO overflow rows, the Chebyshev SpMV's
   overflow): ``keys`` ascending, and ``values[perm[i]]`` the i-th term in
   key order (``perm`` None: ``values`` are in key order already); a call
-  only sums.
+  only sums, by one launch of the static kernel: each row's terms are one
+  run of places; on a call without a perm, of 8 columns at most, a run of
+  ``LONG_RUN`` or more is streamed by a warp through its shared memory
+  while one lane a column adds, and every other run is added by the lane
+  at its start. It finds the runs itself (no run table, no host read), so
+  it is captured with the layout step.
 
 The kernels (``csrc/segment_sum.cu``) add each row's terms in order in one
-thread, from the row's current value, with ``__fadd_rn``.
-``segment_sum_reference`` is the sums' plain version, the CPU's
-``index_add_``; ``cluster_walk_reference`` is the cluster kernel's order (a
-stable ``torch.sort`` of the whole id list), which
+thread (one lane a column), from the row's current value, with
+``__fadd_rn``. ``segment_sum_reference`` is the sums' plain version, the
+CPU's ``index_add_``; ``cluster_walk_reference`` is the cluster kernel's
+order (a stable ``torch.sort`` of the whole id list), which
 ``segment_sum_cluster_reference`` adds term by term; ``sort_tiles_reference``
-is the tile sort's, a stable ``torch.sort`` of each tile. The wrappers run
+is the tile sort's, a stable ``torch.sort`` of each tile;
+``static_runs_reference`` is the static kernel's table of runs (starts,
+ends, which are long). The wrappers run
 the plain versions for tensors on the CPU. For CUDA tensors they launch the
 kernels or raise: nothing here falls back to ``index_add_``'s atomics or to
 ``torch.sort``. The CPU tests hold each plain version against
@@ -59,13 +66,14 @@ kernels or raise: nothing here falls back to ``index_add_``'s atomics or to
 tests/test_torch_determinism.py`` on a card and phase 25 of
 ``chip_smoke.py`` hold each kernel bit-equal to the CPU's ``index_add_``
 and to its plain version. ``segment_sum_cluster.launches`` counts the
-cluster kernel's launches, ``segment_sum.launches`` the tiled and static
-sum's (by either form) and ``sort_tiles.launches`` the tile sort's. Ids
+cluster kernel's launches, ``segment_sum.launches`` the tiled sum's and
+the static kernel's and ``sort_tiles.launches`` the tile sort's. Ids
 must lie in [0, rows of out); the card does not read them back to check.
 """
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -86,6 +94,10 @@ CLUSTER_MAX_TERMS = 131_072
 # The most bits of the row that one radix pass of the cluster kernel sorts
 # by.
 RADIX_BITS = 10
+# Runs of this many keys or more are long in the static kernel (its
+# kLongRun, set from a sweep on an H100): a warp streams them where the call
+# allows it.
+LONG_RUN = 64
 
 
 def tile_shape(M):
@@ -170,6 +182,21 @@ def sort_tiles(ids, rows):
     return keys, perm, T, L, mask
 
 
+def static_runs_reference(keys):
+    """The static kernel's table of runs of ``keys`` (ascending; a tensor or
+    an array): (starts, ends, is_long) int64 and bool numpy arrays, one
+    entry a run in key order. A place starts a run where its key differs
+    from the one before it; the run ends where the next one starts, and is
+    long when it has ``LONG_RUN`` places or more. The kernel streams a long
+    run by a warp on a call without a perm, of 8 columns at most and 16-byte
+    aligned values; it adds every other run in the lane at its start."""
+    keys = np.asarray(keys.cpu() if torch.is_tensor(keys) else keys)
+    starts = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]]) if len(
+        keys) else np.zeros(0, np.int64)
+    ends = np.r_[starts[1:], len(keys)].astype(np.int64)[:len(starts)]
+    return starts.astype(np.int64), ends, ends - starts >= LONG_RUN
+
+
 def segment_sum_reference(out, keys, values, perm=None):
     """Plain version: ``out.index_add_(0, keys, values[perm])`` (the CPU's
     loop adds each row's terms in ascending order)."""
@@ -179,9 +206,18 @@ def segment_sum_reference(out, keys, values, perm=None):
 def _kernel_fn():
     fn = _build.load("segment_sum").graphem_segment_sum_launch
     fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p]
+    return fn
+
+
+def _static_fn():
+    fn = _build.load("segment_sum").graphem_segment_sum_sorted_launch
+    fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_void_p]
     return fn
 
@@ -192,7 +228,8 @@ def segment_sum_cuda(out, keys, values, perm=None, tiles=1, mask=None):
     each sorted ascending (PAD_KEY, or the int64 maximum, pads); tile t's
     position j holds term t * L + perm[t * L + j] (``perm`` int64, or None
     for terms in key order). Several tiles take int32 keys and the tile
-    sort's (rows, mask_words(T)) ``mask``. ``values`` (terms, d) or
+    sort's (rows, mask_words(T)) ``mask``: the tiled sum. One tile takes
+    the static kernel (``static_runs_reference``). ``values`` (terms, d) or
     (terms,) and ``out`` (rows, d) or (rows,) are float32. With one tile
     this is segment_sum_reference, bit for bit."""
     T = int(tiles)
@@ -233,16 +270,22 @@ def segment_sum_cuda(out, keys, values, perm=None, tiles=1, mask=None):
     if L == 0:
         return out
     d = out.shape[1] if out.ndim == 2 else 1
+    if d == 0:
+        return out
     keys = keys.contiguous()
     values = values.contiguous()
-    fn = _kernel_fn()
+    perm = None if perm is None else perm.contiguous()
+    perm_ptr = None if perm is None else perm.data_ptr()
+    fn = _kernel_fn() if T > 1 else _static_fn()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
         segment_sum.launches += 1
-        rc = fn(keys.data_ptr(), keys.element_size(),
-                None if perm is None else perm.contiguous().data_ptr(),
-                None if mask is None else mask.data_ptr(), W,
-                values.data_ptr(), out.data_ptr(), T, L, d, stream)
+        if T > 1:
+            rc = fn(keys.data_ptr(), perm_ptr, mask.data_ptr(), W,
+                    values.data_ptr(), out.data_ptr(), T, L, d, stream)
+        else:
+            rc = fn(keys.data_ptr(), keys.element_size(), perm_ptr,
+                    values.data_ptr(), out.data_ptr(), L, d, stream)
     if rc != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: CUDA error "
                            f"{rc}")

@@ -104,6 +104,84 @@ def test_static_form_without_perm_takes_values_in_key_order():
     np.testing.assert_array_equal(got.numpy(), _loop(out, ids, values))
 
 
+def _static_terms(case, d=3, seed=0):
+    """(keys ascending int64, values in key order, out) of a static plan:
+    'one_row' 25,600 terms into one row; 'short' runs of 1-2 terms;
+    'mixed' runs of 1-2 among runs of 60-5,000 and one of 22,841 (the 1M
+    heavy-tail graph's widest hub), in a shuffled order of rows; 'empty'
+    none."""
+    rng = np.random.default_rng(seed)
+    counts = {
+        "one_row": np.array([25_600]),
+        "short": rng.integers(1, 3, 5000),
+        "mixed": np.concatenate([rng.integers(1, 3, 3000),
+                                 rng.integers(60, 5000, 40), [22_841]]),
+        "empty": np.zeros(0, np.int64),
+    }[case]
+    rng.shuffle(counts)
+    rows = max(len(counts), 1)
+    keys = np.repeat(np.arange(len(counts)), counts).astype(np.int64)
+    shape = (len(keys), d) if d else (len(keys),)
+    values = rng.standard_normal(shape).astype(np.float32)
+    oshape = (rows, d) if d else (rows,)
+    out = rng.standard_normal(oshape).astype(np.float32)
+    return keys, values, out
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("form", ["numpy", "int32", "int64"])
+@pytest.mark.parametrize("case", ["one_row", "short", "mixed", "empty",
+                                  "perm"])
+def test_static_walk_finds_the_runs(case, form):
+    """The static kernel's table of runs against np.unique, from a numpy
+    array or an int32 or int64 tensor of keys: each run starts where
+    np.unique first sees its key, ends after its count, and is long when it
+    has LONG_RUN terms or more ('mixed' holds runs on both sides of it).
+    'perm': the sorted keys of unsorted ids, as the scatter plan keeps them
+    beside a perm."""
+    if case == "perm":
+        ids = np.random.default_rng(3).integers(0, 700, 9000)
+        keys = np.sort(ids, kind="stable")
+    else:
+        keys = _static_terms(case)[0]
+    arg = keys if form == "numpy" else torch.from_numpy(keys).to(
+        getattr(torch, form))
+    starts, ends, is_long = seg.static_runs_reference(arg)
+    _, first, count = np.unique(keys, return_index=True, return_counts=True)
+    np.testing.assert_array_equal(starts, first)
+    np.testing.assert_array_equal(ends, first + count)
+    np.testing.assert_array_equal(is_long, count >= seg.LONG_RUN)
+    if case == "mixed":
+        assert is_long.any() and (~is_long).any()
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("case", ["one_row", "mixed", "perm"])
+def test_static_runs_in_order_give_index_add_bits(case):
+    """Each run of the model added in order onto its row, through the perm
+    where there is one, gives the CPU's index_add_ bits, as does
+    segment_sum_sorted's plain path on the same arguments."""
+    if case == "perm":
+        ids, values, out = _terms("base", rows=700, M=9000)
+        ids[:4000] = 5  # one long run among short ones
+        perm = np.argsort(ids, kind="stable")
+        keys = ids[perm]
+    else:
+        keys, values, out = _static_terms(case)
+        ids, perm = keys, np.arange(len(keys))
+    want = _index_add(out, ids, values)
+    got = out.copy()
+    starts, ends, _ = seg.static_runs_reference(keys)
+    for a, b in zip(starts, ends):
+        got[keys[a]] = _loop(got[keys[a]][None], np.zeros(b - a, np.int64),
+                             values[perm[a:b]])[0]
+    np.testing.assert_array_equal(got, want)
+    plain = seg.segment_sum_sorted(
+        torch.from_numpy(out.copy()), torch.from_numpy(keys),
+        torch.from_numpy(values), torch.from_numpy(perm))
+    np.testing.assert_array_equal(plain.numpy(), want)
+
+
 def _tiled_walk(ids, rows):
     """The order in which the card's kernel adds the terms: (row, term)
     pairs as its owners walk them, from the tile sort's plain version.
@@ -773,18 +851,83 @@ def test_card_cluster_form_under_graph_replay(cuda_device, M):
         np.testing.assert_array_equal(buf.cpu().numpy(), want)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [0, 3, 8])
-def test_card_static_form_bit_equal_to_cpu(cuda_device, d):
-    ids, values, out = _terms("base", rows=5000, M=20000, d=d)
+def _card_static(case, d, with_perm, dtype, device):
+    """A static call on the card: (out, keys, values, perm) there, and the
+    CPU's index_add_ of its terms."""
+    if case == "base":
+        ids, values, out = _terms("base", rows=5000, M=20000, d=d)
+    else:
+        keys, values, out = _static_terms(case, d=d)
+        # the same terms in another order, which the perm undoes
+        shuffle = np.random.default_rng(1).permutation(len(keys))
+        ids, values = keys[shuffle], values[shuffle]
     perm = np.argsort(ids, kind="stable")
     want = _index_add(out, ids, values)
-    got = seg.segment_sum_sorted(
-        torch.from_numpy(out).to(cuda_device),
-        torch.from_numpy(ids[perm]).to(cuda_device),
-        torch.from_numpy(values).to(cuda_device),
-        torch.from_numpy(perm).to(cuda_device))
+    keys = torch.from_numpy(ids[perm]).to(dtype).to(device)
+    if with_perm:
+        args = (values, torch.from_numpy(perm).to(device))
+    else:
+        args = (values[perm], None)
+    return (torch.from_numpy(out).to(device), keys,
+            torch.from_numpy(args[0]).to(device), args[1]), want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["base", "one_row", "mixed"])
+@pytest.mark.parametrize("d", [0, 1, 3, 8])
+@pytest.mark.parametrize("with_perm", [False, True], ids=["no_perm", "perm"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_card_static_form_bit_equal_to_cpu(cuda_device, case, d, with_perm,
+                                           dtype):
+    """One launch a call, bit-equal to the CPU's index_add_, twice: the
+    base case's short runs, a run of 25,600 terms into one row, and runs
+    of 1-2 terms mixed with runs of 60-5,000 and one of 22,841, with and
+    without a perm, int32 and int64 keys."""
+    (out, keys, values, perm), want = _card_static(case, d, with_perm,
+                                                   dtype, cuda_device)
+    for _ in range(2):
+        before = seg.segment_sum.launches
+        got = seg.segment_sum_sorted(out.clone(), keys, values, perm)
+        assert seg.segment_sum.launches == before + 1
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("why", ["perm", "d11", "unaligned"])
+def test_card_static_form_long_runs_a_lane_adds(cuda_device, why):
+    """Long runs that the kernel leaves to the lane at their start give the
+    same bits: a call with a perm, one of 11 columns, and values that are
+    not 16-byte aligned (a view one float into its storage)."""
+    d = 11 if why == "d11" else 3
+    (out, keys, values, perm), want = _card_static(
+        "mixed", d, why == "perm", torch.int64, cuda_device)
+    if why == "unaligned":
+        flat = torch.empty(values.numel() + 1, device=cuda_device)
+        flat[1:] = values.reshape(-1)
+        values = flat[1:].view(values.shape)
+        assert values.data_ptr() % 16 != 0 and values.is_contiguous()
+    got = seg.segment_sum_sorted(out, keys, values, perm)
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_perm", [False, True], ids=["no_perm", "perm"])
+def test_card_static_form_under_graph_replay(cuda_device, with_perm):
+    """A captured static call replays bit-equal three times, one launch in
+    the capture."""
+    (base, keys, values, perm), want = _card_static(
+        "mixed", 3, with_perm, torch.int32, cuda_device)
+    buf = base.clone()
+    seg.segment_sum_sorted(buf, keys, values, perm)  # eager first: builds
+    before = seg.segment_sum.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        buf.copy_(base)
+        seg.segment_sum_sorted(buf, keys, values, perm)
+    assert seg.segment_sum.launches == before + 1
+    for _ in range(3):
+        graph.replay()
+        np.testing.assert_array_equal(buf.cpu().numpy(), want)
 
 
 @pytest.mark.cuda
