@@ -67,17 +67,18 @@ Phases:
    values, the SpMV's overflow form and the set-up's peak memory, and
    fails if the init tiered down), then run_layout(50); binned table +
    overflow plan. Both main paths fail if K1 runs at a shape that phase 3
-   did not check. Each main_setup line also splits init_s into the edge
-   extraction, the tables, the spectral init, the step's upload and the
-   rest, counts the host helpers' calls (phase 21), and fails if the
+   did not check. Each main_setup line also splits init_s by the program's
+   spans into the edge extraction, the tables, the spectral init, the
+   step's upload and the rest, counts the host helpers' calls (phase 21), and fails if the
    extraction and the sorts did not run in C;
 7. quick start, both graphs: create_graphem(backend='cuvs') (the 'pallas'
    strategy, K2), run_layout(50) timed, graphem_seed_selection (20 more
    iterations), then estimated_influence of the seeds and of 10 random
    vertices at p=0.1 over 64 runs, and the exact gates p=0 (exactly the
    seeds) and p=1 (exactly the seeds' connected components); the first
-   estimate's ic_seconds split into the edge extraction, the cascade
-   plan's host build, its upload, its push lists' build and the cascade;
+   estimate's ic_seconds split by the program's spans into the edge
+   extraction, the cascade plan's host build, its upload, and the device
+   part (push lists, cascade, the wait for the counts);
    the four cascades must be four ic_cascade launches;
 8. greedy: greedy_seed_selection on a small hub graph, the same seeds on
    the card and on the CPU, on the gather path and on the scatter path's
@@ -258,8 +259,9 @@ Phases:
     model and the per-step model of a dense step every step. Then the
     main path: grt.estimated_influence on the 12M graph at p=0.1 over 64
     runs (its wall seconds, split into the edge extraction, the plan
-    decision, the directed lists' build and upload, their push lists'
-    build and the cascade, and its peak memory), at p=0 and at p=1
+    decision, the directed lists' build and upload, and the device part:
+    their push lists, the cascade and the wait for the counts; and its
+    peak memory), at p=0 and at p=1
     (exact): three ic_scatter launches and no ic_cascade launch. The phase adds about 45 s
     to the run on an H100: the graph's build about 9 s, the plain version
     at 12M about 17 s over its three calls (p=0.1 about 10 s, timed once
@@ -937,7 +939,7 @@ def phase_quickstart(grt, bf, kp, label, adj, init, warmup, profile):
 
     torch.cuda.synchronize()
     icc.ic_cascade.launches = 0
-    with ic_split() as split:
+    with program_split(IC_SPANS) as split:
         t0 = time.perf_counter()
         spread = grt.estimated_influence(adj, seeds, p=0.1, num_sims=64)
         ic_s = time.perf_counter() - t0
@@ -1333,45 +1335,35 @@ def phase_host_prep(graphs):
 
 
 @contextlib.contextmanager
-def ic_split():
-    """Seconds of an IC estimate's stages inside: the edge extraction, the
-    cascade plan's build on the host (past the table budget only the
-    decision), its upload (the scatter path: the directed edge lists' build and
-    upload), the push lists' build on the device and the cascade of either
-    path (each stage ends in a synchronize)."""
-    from graphem_rapids_torch import influence as inf
-    from graphem_rapids_torch.ops import ic_sim as tic
+def program_split(fields):
+    """Seconds of the program's own spans (``utils/tracing.py``) recorded
+    inside: ``fields`` maps each field to the span names it sums."""
+    from graphem_rapids_torch.utils import tracing
 
-    secs = dict(extract_s=0.0, plan_s=0.0, upload_s=0.0, push_s=0.0,
-                cascade_s=0.0)
-    stages = [(inf, "_as_edges_and_n", "extract_s"),
-              (tic, "cascade_plan_arrays", "plan_s"),
-              (tic, "upload_plan", "upload_s"),
-              (tic, "directed_edges", "upload_s"),
-              (tic, "table_push_lists", "push_s"),
-              (tic, "edge_push_lists", "push_s"),
-              (tic, "_ic_run_table", "cascade_s"),
-              (tic, "_ic_run", "cascade_s")]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in stages]
-
-    def timed(fn, key):
-        def call(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                out = fn(*args, **kwargs)
-                torch.cuda.synchronize()
-                return out
-            finally:
-                secs[key] += time.perf_counter() - t0
-        return call
-
-    for (mod, name, key), (_, _, fn) in zip(stages, saved):
-        setattr(mod, name, timed(fn, key))
+    tracing.reset()
+    secs = {}
     try:
         yield secs
     finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+        spans = tracing.snapshot()["spans"]
+        secs.update({key: sum(spans[n]["total_ns"] for n in names
+                              if n in spans) / 1e9
+                     for key, names in fields.items()})
+
+
+# An IC estimate's stages: the edge extraction, the cascade plan's build
+# on the host (past the table budget only the decision), its upload (the
+# scatter path: the directed edge lists' build and upload), and on the
+# device the push lists' build, the launch and the wait for the counts.
+IC_SPANS = {"extract_s": ("ic.extract",), "plan_s": ("ic.plan",),
+            "upload_s": ("ic.upload",),
+            "device_s": ("ic.push", "ic.cascade", "ic.read")}
+
+# GraphEmbedderTorch's set-up stages: the edge extraction, the tables, the
+# spectral init and the step's upload (_build_step).
+SETUP_SPANS = {"extract_s": ("setup.edges",), "tables_s": ("setup.tables",),
+               "spectral_s": ("setup.spectral",),
+               "upload_s": ("setup.upload",)}
 
 
 @contextlib.contextmanager
@@ -1705,7 +1697,7 @@ def phase_scatter_main(grt, adj, profile):
     """Phase 23, second part: the scatter path through the public entry
     point. estimated_influence of 10 random vertices on the 12M graph at
     p=0.1 over 64 runs, timed with its split (edge extraction, the plan
-    decision, the directed edge lists' build and upload, the cascade) and
+    decision, the directed edge lists' build and upload, the device part) and
     its peak device memory, then at p=0 (exactly the seeds) and p=1 (all
     12M vertices, the ring is connected): three cascades, three
     ic_scatter launches and no ic_cascade launch. Returns the launches."""
@@ -1718,7 +1710,7 @@ def phase_scatter_main(grt, adj, profile):
     torch.cuda.reset_peak_memory_stats()
     icc.ic_cascade.launches = 0
     ics.ic_scatter.launches = 0
-    with ic_split() as split:
+    with program_split(IC_SPANS) as split:
         t0 = time.perf_counter()
         spread = grt.estimated_influence(adj, seeds, p=0.1, num_sims=64)
         ic_s = time.perf_counter() - t0
@@ -1767,7 +1759,7 @@ def phase_scale_main(grt, bf, adj, fp32_instr_per_s, iters=20):
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with setup_split() as split:
+    with program_split(SETUP_SPANS) as split:
         t0 = time.perf_counter()
         emb = grt.GraphEmbedderTorch(adj, n_components=3, seed=0,
                                      verbose=False, init="random",
@@ -1948,41 +1940,6 @@ def segment_launches(label, iters, static_per_iter=None, form="cluster"):
             f"and {want if want is not None else '>= ' + str(tiled)}")
 
 
-@contextlib.contextmanager
-def setup_split():
-    """Seconds of GraphEmbedderTorch's set-up stages inside: the edge
-    extraction, the tables, the spectral init and the step's upload
-    (_build_step)."""
-    from graphem_rapids_torch.models import embedder as em
-
-    secs = dict(extract_s=0.0, tables_s=0.0, spectral_s=0.0, upload_s=0.0)
-    stages = {"csr_upper_edges": "extract_s",
-              "build_neighbor_table_binned": "tables_s",
-              "build_neighbor_table": "tables_s",
-              "spectral_init": "spectral_s"}
-    saved = {name: getattr(em, name) for name in stages}
-    build_step = em.GraphEmbedderTorch._build_step
-
-    def timed(fn, key):
-        def call(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                secs[key] += time.perf_counter() - t0
-        return call
-
-    for name, key in stages.items():
-        setattr(em, name, timed(saved[name], key))
-    em.GraphEmbedderTorch._build_step = timed(build_step, "upload_s")
-    try:
-        yield secs
-    finally:
-        for name, fn in saved.items():
-            setattr(em, name, fn)
-        em.GraphEmbedderTorch._build_step = build_step
-
-
 def chebyshev_fields(log, label, expected):
     """The Chebyshev tier's seconds and Ritz values from its log record;
     fails on a tier-down, or if the tier ran other than ``expected``
@@ -2009,7 +1966,7 @@ def phase_main(grt, bf, label, adj, expect_table, init, warmup, profile,
     for fn in fg.NATIVE:
         fn.calls = 0
     torch.cuda.reset_peak_memory_stats()
-    with setup_split() as split:
+    with program_split(SETUP_SPANS) as split:
         t0 = time.perf_counter()
         emb = grt.GraphEmbedderTorch(adj, n_components=3, seed=0,
                                      verbose=False, init=init,

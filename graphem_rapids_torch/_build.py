@@ -28,6 +28,8 @@ import sysconfig
 import time
 from pathlib import Path
 
+from .utils import tracing
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "graphem_rapids_torch"
 
@@ -135,7 +137,8 @@ def build(names=None, force=False):
     library is already built are skipped unless ``force``. Returns
     ``{name: {"seconds", "log"}}`` for the sources that were compiled;
     for a kernel ``log`` holds the ``-Xptxas -v`` report (registers,
-    spills).
+    spills). The wait for the compilers is the span ``kernel.compile``;
+    each library built adds one to the counter ``kernels.compiled``.
     """
     if names is None:
         names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
@@ -146,9 +149,13 @@ def build(names=None, force=False):
         if force or not library_path(name).exists()
     }
     report = {}
-    for name, (proc, tmp, out) in started.items():
-        log = _finish(name, proc, tmp, out)
-        report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    if not started:
+        return report
+    with tracing.span("kernel.compile"):
+        for name, (proc, tmp, out) in started.items():
+            log = _finish(name, proc, tmp, out)
+            report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+            tracing.count("kernels.compiled")
     return report
 
 

@@ -29,6 +29,7 @@ from .ops.ic_sim import (
     independent_cascade,
     wants_push_lists,
 )
+from .utils import tracing
 
 # Most candidates of one scatter-path sweep chunk (the JAX package's bound).
 GREEDY_CAND_CHUNK = 1024
@@ -102,13 +103,18 @@ def ndlib_estimated_influence(G, seeds, p=0.1, iterations_count=200,
 
 def estimated_influence(G, seeds, p=0.1, iterations_count=200, num_sims=64,
                         key=None, device=None):
-    """Mean IC spread over ``num_sims`` Monte-Carlo runs, run as one batch."""
-    edges, n = _as_edges_and_n(G)
-    counts, _ = independent_cascade(
-        edges, n, seeds, p=p, num_sims=num_sims, max_iters=iterations_count,
-        key=key, device=device,
-    )
-    return float(np.mean(counts))
+    """Mean IC spread over ``num_sims`` Monte-Carlo runs, run as one batch.
+
+    Spans: ``ic.estimate``, with the graph's extraction (``ic.extract``)
+    and ``independent_cascade``'s stages under it."""
+    with tracing.span("ic.estimate"):
+        with tracing.span("ic.extract"):
+            edges, n = _as_edges_and_n(G)
+        counts, _ = independent_cascade(
+            edges, n, seeds, p=p, num_sims=num_sims,
+            max_iters=iterations_count, key=key, device=device,
+        )
+        return float(np.mean(counts))
 
 
 def _chunk_words(base_mask, cand_ids, num_sims, base_runs=0):

@@ -48,6 +48,7 @@ from ..ops.knn import EXACT_MAX_REFS, knn, oneshot_budget_bytes
 from ..ops.laplacian import spectral_init
 from ..ops.sampling import sample_indices
 from ..ops.segment import segment_sum, segment_sum_cluster, sort_tiles
+from ..utils import tracing
 from ..utils.memory_management import get_optimal_chunk_size
 
 logger = logging.getLogger(__name__)
@@ -216,8 +217,14 @@ class GraphEmbedderTorch:
         self._graph = None
 
         self.device = resolve_device(device)
+        with tracing.span("setup"):
+            self._set_up(adjacency, sample_size, batch_size, init, seed)
 
-        edges_np = self._extract_edges_from_adjacency(adjacency)
+    def _set_up(self, adjacency, sample_size, batch_size, init, seed):
+        """The set-up's stages, each a span: the edges, the tables, the
+        spectral start, and the upload (the step's tensors)."""
+        with tracing.span("setup.edges"):
+            edges_np = self._extract_edges_from_adjacency(adjacency)
         self.n_edges = len(edges_np)
         self.sample_size = int(min(sample_size, max(self.n_edges, 1)))
         self._edges_np = edges_np
@@ -241,15 +248,21 @@ class GraphEmbedderTorch:
         ref_budget = (
             bf.MAX_REFS_SEGMENTED - 1 if self.device.type == "cuda" else None
         )
+        binned_table = self.binned_table
         want_binned = True if binned_table is None else bool(binned_table)
-        nbb = (
-            build_neighbor_table_binned(
-                edges_np, self.n,
-                overhead_rows=0 if binned_table else 4096,
-                ref_order=self.ref_order, ref_budget=ref_budget,
+        with tracing.span("setup.tables"):
+            nbb = (
+                build_neighbor_table_binned(
+                    edges_np, self.n,
+                    overhead_rows=0 if binned_table else 4096,
+                    ref_order=self.ref_order, ref_budget=ref_budget,
+                )
+                if want_binned and self.n_edges > 0 else None
             )
-            if want_binned and self.n_edges > 0 else None
-        )
+            if nbb is None:
+                self._nb = build_neighbor_table(edges_np, self.n,
+                                                ref_order=self.ref_order,
+                                                ref_budget=ref_budget)
         if nbb is not None:
             self._nb = nbb
             self._perm = nbb["perm"]
@@ -257,9 +270,6 @@ class GraphEmbedderTorch:
             self._edge_map = nbb["edge_map"]
             edges_engine = nbb["edges_int"]
         else:
-            self._nb = build_neighbor_table(edges_np, self.n,
-                                            ref_order=self.ref_order,
-                                            ref_budget=ref_budget)
             self._perm = None
             self._inv_perm = None
             self._edge_map = None
@@ -279,14 +289,17 @@ class GraphEmbedderTorch:
             self.logger.info("kNN strategy: %s", self._strategy)
             self.logger.info("kNN batch size: %d", self.batch_size)
 
-        init_np = spectral_init(adjacency, self.n_components, method=init,
-                                seed=seed, device=self.device,
-                                mesh=self._init_mesh())
-        if self._perm is not None:
-            init_np = init_np[self._perm]
-        self._positions = torch.as_tensor(init_np, dtype=self.dtype,
-                                          device=self.device)
-        self._build_step(edges_engine)
+        with tracing.span("setup.spectral"):
+            init_np = spectral_init(adjacency, self.n_components,
+                                    method=init, seed=seed,
+                                    device=self.device,
+                                    mesh=self._init_mesh())
+        with tracing.span("setup.upload"):
+            if self._perm is not None:
+                init_np = init_np[self._perm]
+            self._positions = torch.as_tensor(init_np, dtype=self.dtype,
+                                              device=self.device)
+            self._build_step(edges_engine)
 
     # ------------------------------------------------------------------ #
     # construction helpers
@@ -416,65 +429,78 @@ class GraphEmbedderTorch:
         k_attr, L_min = self.k_attr, self.L_min
         k_eff = self._k_eff
         fused = self._fused_refs_active and k_eff > 1
-        if nb["ref_order"] == "slot":
-            # per-slot (rows, d) gathers shared by the spring sum and the
-            # slot-major ref set
-            slotwise = (spring_refs_binned_slotwise if binned
-                        else spring_refs_slotwise)
-            spring, refs = slotwise(
-                positions, ops["tables"] if binned else ops["table"],
-                nb["buckets"] if binned else nb["ref_cap"], k_attr, L_min,
-                ref_valid=ops["ref_valid"], overflow_lt=ops["overflow_lt"],
-                overflow_edges=ops["nb_overflow"],
-                overflow_plan=ops["ov_plan"], want_refs=fused,
-            )
-        elif binned:
-            pn_list = [positions[t] for t in ops["tables"]]
-            spring = spring_forces_binned(
-                positions, pn_list, nb["buckets"], k_attr, L_min,
-                ops["nb_overflow"], ops["ov_plan"],
-            )
-            if fused:
-                refs = midpoint_refs_binned(
-                    positions, pn_list, nb["buckets"], ops["ref_valid"],
-                    ops["overflow_lt"],
+        # the stage spans record only while this runs in Python (eagerly,
+        # at a capture, on the CPU), not under graph replay; in slot order
+        # the refs come with the spring's gathers (step.spring)
+        with tracing.span("step.spring"):
+            if nb["ref_order"] == "slot":
+                # per-slot (rows, d) gathers shared by the spring sum and
+                # the slot-major ref set
+                slotwise = (spring_refs_binned_slotwise if binned
+                            else spring_refs_slotwise)
+                spring, refs = slotwise(
+                    positions, ops["tables"] if binned else ops["table"],
+                    nb["buckets"] if binned else nb["ref_cap"], k_attr,
+                    L_min, ref_valid=ops["ref_valid"],
+                    overflow_lt=ops["overflow_lt"],
+                    overflow_edges=ops["nb_overflow"],
+                    overflow_plan=ops["ov_plan"], want_refs=fused,
                 )
-        else:
-            pn = positions[ops["table"]]
-            spring = spring_forces_from_gathered(
-                positions, pn, k_attr, L_min, ops["nb_overflow"],
-                ops["ov_plan"],
-            )
-            if fused:
-                refs = midpoint_refs_from_gathered(
-                    positions, pn, nb["ref_cap"], ops["ref_valid"],
-                    ops["overflow_lt"],
+            elif binned:
+                pn_list = [positions[t] for t in ops["tables"]]
+                spring = spring_forces_binned(
+                    positions, pn_list, nb["buckets"], k_attr, L_min,
+                    ops["nb_overflow"], ops["ov_plan"],
                 )
+            else:
+                pn = positions[ops["table"]]
+                spring = spring_forces_from_gathered(
+                    positions, pn, k_attr, L_min, ops["nb_overflow"],
+                    ops["ov_plan"],
+                )
+        if fused and nb["ref_order"] != "slot":
+            with tracing.span("step.refs"):
+                if binned:
+                    refs = midpoint_refs_binned(
+                        positions, pn_list, nb["buckets"], ops["ref_valid"],
+                        ops["overflow_lt"],
+                    )
+                else:
+                    refs = midpoint_refs_from_gathered(
+                        positions, pn, nb["ref_cap"], ops["ref_valid"],
+                        ops["overflow_lt"],
+                    )
         if k_eff > 1:
             kw = dict(strategy=self._strategy, chunk_size=self.batch_size,
                       compute_dtype=self.knn_compute_dtype,
                       recall_target=self.knn_recall_target)
-            if fused:
-                queries = refs[ops["edge_ref"][sampled.long()]]
-                slot_idx, _ = knn(queries, refs, k_eff, **kw)
-                knn_idx = ops["ref_edge"][slot_idx[:, 1:].long()]  # drop self
-            else:
-                edges = ops["edges"]
-                midpoints = (positions[edges[:, 0]] + positions[edges[:, 1]]) / 2.0
-                knn_idx, _ = knn(midpoints[sampled.long()], midpoints, k_eff,
-                                 **kw)
-                knn_idx = knn_idx[:, 1:]  # drop self column
-            inter = intersection_forces(
-                positions, ops["edges"], knn_idx, sampled, self.k_inter,
-                edge_order=ops["edge_order"],
-            )
+            with tracing.span("step.knn"):
+                if fused:
+                    queries = refs[ops["edge_ref"][sampled.long()]]
+                    slot_idx, _ = knn(queries, refs, k_eff, **kw)
+                    # drop self
+                    knn_idx = ops["ref_edge"][slot_idx[:, 1:].long()]
+                else:
+                    edges = ops["edges"]
+                    midpoints = (positions[edges[:, 0]]
+                                 + positions[edges[:, 1]]) / 2.0
+                    knn_idx, _ = knn(midpoints[sampled.long()], midpoints,
+                                     k_eff, **kw)
+                    knn_idx = knn_idx[:, 1:]  # drop self column
+            with tracing.span("step.intersect"):
+                inter = intersection_forces(
+                    positions, ops["edges"], knn_idx, sampled, self.k_inter,
+                    edge_order=ops["edge_order"],
+                )
         else:
             # a single edge has no neighbor edges to intersect
             inter = torch.zeros_like(positions)
-        new_positions = positions + spring + inter
-        new_positions = new_positions - new_positions.mean(dim=0, keepdim=True)
-        std = new_positions.std(dim=0, keepdim=True, unbiased=True) + EPS
-        return new_positions / std
+        with tracing.span("step.update"):
+            new_positions = positions + spring + inter
+            new_positions = new_positions - new_positions.mean(dim=0,
+                                                               keepdim=True)
+            std = new_positions.std(dim=0, keepdim=True, unbiased=True) + EPS
+            return new_positions / std
 
     def _sample(self):
         return sample_indices(self._generator, self.n_edges,
@@ -546,11 +572,15 @@ class GraphEmbedderTorch:
         if n <= 0:
             return
         if self._graph is None:
-            self._positions = self._raw_step(self._positions, self._sample())
+            with tracing.span("layout.first_step"):
+                self._positions = self._raw_step(self._positions,
+                                                 self._sample())
             n -= 1
-            self._capture()
-        for _ in range(n):
-            self._graph.replay()
+            with tracing.span("layout.capture"):
+                self._capture()
+        with tracing.span("layout.replay"):
+            for _ in range(n):
+                self._graph.replay()
         for fn, per_replay in self._graph_launches:
             fn.launches += per_replay * n
 
@@ -568,11 +598,23 @@ class GraphEmbedderTorch:
 
     @property
     def positions(self):
-        """Positions as a host numpy array, in USER vertex order."""
-        pos = self._positions.detach().cpu().numpy()
-        if self._perm is not None:
-            pos = pos[self._inv_perm]
-        return pos
+        """Positions as a host numpy array, in USER vertex order.
+
+        Spans: ``layout.read.wait`` (the device finishing the work queued
+        before the read), ``layout.read.copy`` (to the host) and
+        ``layout.read.permute`` (to user order), under ``layout.read``.
+        """
+        with tracing.span("layout.read"):
+            with tracing.span("layout.read.wait"):
+                if self._positions.is_cuda:
+                    torch.cuda.current_stream(
+                        self._positions.device).synchronize()
+            with tracing.span("layout.read.copy"):
+                pos = self._positions.detach().cpu().numpy()
+            with tracing.span("layout.read.permute"):
+                if self._perm is not None:
+                    pos = pos[self._inv_perm]
+            return pos
 
     @positions.setter
     def positions(self, value):
@@ -622,38 +664,41 @@ class GraphEmbedderTorch:
         replay errors raise: the CUDA path never falls back to the eager
         loop, which is the CPU's.
         """
-        if self.verbose:
-            self.logger.info("Running layout for %d iterations", num_iterations)
-        if block_size < 1:
-            raise ValueError(f"block_size must be >= 1, got {block_size}")
-        if self.n_edges == 0:
-            return self.positions
-        bar = None
-        if progress:
-            try:
-                from tqdm import tqdm
-
-                bar = tqdm(total=num_iterations, desc="layout", unit="iter")
-            except ImportError:
-                pass
-        done = 0
-        while done < num_iterations:
-            n = min(block_size, num_iterations - done)
-            self._iterate(n)
-            done += n
-            self._iteration += n
-            if bar is not None or not self._fused_blocks:
-                # the bar tracks the device, not the launch queue; the
-                # eager tiers sync per block as before
-                self._sync()
-            if bar is not None:
-                bar.update(n)
+        with tracing.span("layout.call"):
             if self.verbose:
-                self.logger.info("Completed iteration %d/%d", done,
+                self.logger.info("Running layout for %d iterations",
                                  num_iterations)
-        if bar is not None:
-            bar.close()
-        return self.positions
+            if block_size < 1:
+                raise ValueError(f"block_size must be >= 1, got {block_size}")
+            if self.n_edges == 0:
+                return self.positions
+            bar = None
+            if progress:
+                try:
+                    from tqdm import tqdm
+
+                    bar = tqdm(total=num_iterations, desc="layout",
+                               unit="iter")
+                except ImportError:
+                    pass
+            done = 0
+            while done < num_iterations:
+                n = min(block_size, num_iterations - done)
+                self._iterate(n)
+                done += n
+                self._iteration += n
+                if bar is not None or not self._fused_blocks:
+                    # the bar tracks the device, not the launch queue; the
+                    # eager tiers sync per block as before
+                    self._sync()
+                if bar is not None:
+                    bar.update(n)
+                if self.verbose:
+                    self.logger.info("Completed iteration %d/%d", done,
+                                     num_iterations)
+            if bar is not None:
+                bar.close()
+            return self.positions
 
     def save_checkpoint(self, path):
         """Save layout state to an .npz: positions (user order), the torch

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import native as fg
+from ..utils import tracing
 from .intersect import segments_intersect_2d
 from .segment import segment_sum, segment_sum_sorted
 
@@ -122,71 +123,78 @@ def build_neighbor_table(edges_np, n, cap=None, ref_order="row",
         if ref_order == "slot":
             out["table_t"] = out.pop("table").T
         return out
-    E = len(edges_np)
-    e0 = np.minimum(edges_np[:, 0], edges_np[:, 1]).astype(np.int32)
-    e1 = np.maximum(edges_np[:, 0], edges_np[:, 1]).astype(np.int32)
-    deg = np.bincount(e0, minlength=n) + np.bincount(e1, minlength=n)
-    if cap is None:
-        cap = _optimal_table_cap(deg, n)
-    cap = max(cap, 1)
+    with tracing.span("tables.degrees"):
+        E = len(edges_np)
+        e0 = np.minimum(edges_np[:, 0], edges_np[:, 1]).astype(np.int32)
+        e1 = np.maximum(edges_np[:, 0], edges_np[:, 1]).astype(np.int32)
+        deg = np.bincount(e0, minlength=n) + np.bincount(e1, minlength=n)
+        if cap is None:
+            cap = _optimal_table_cap(deg, n)
+        cap = max(cap, 1)
 
-    # Within each row, i<j neighbors come first (the kNN refs are a prefix
-    # of the table columns); then the reverse neighbors.
-    deg_fwd = np.bincount(e0, minlength=n)
-    deg_rev = np.bincount(e1, minlength=n)
-    s = fg.radix_argsort(e0, native)
-    fwd_start = np.concatenate([[0], np.cumsum(deg_fwd)[:-1]]).astype(np.int32)
-    col_fwd = fg.scatter_ranks(s, e0, fwd_start, native)
-    r = fg.radix_argsort(e1, native)
-    rev_start = np.concatenate([[0], np.cumsum(deg_rev)[:-1]]).astype(np.int32)
-    col_rev = fg.scatter_ranks(r, e1, rev_start, native)
-    col_rev += deg_fwd[e1].astype(np.int32)
+    with tracing.span("tables.rows"):
+        # Within each row, i<j neighbors come first (the kNN refs are a
+        # prefix of the table columns); then the reverse neighbors.
+        deg_fwd = np.bincount(e0, minlength=n)
+        deg_rev = np.bincount(e1, minlength=n)
+        s = fg.radix_argsort(e0, native)
+        fwd_start = np.concatenate(
+            [[0], np.cumsum(deg_fwd)[:-1]]).astype(np.int32)
+        col_fwd = fg.scatter_ranks(s, e0, fwd_start, native)
+        r = fg.radix_argsort(e1, native)
+        rev_start = np.concatenate(
+            [[0], np.cumsum(deg_rev)[:-1]]).astype(np.int32)
+        col_rev = fg.scatter_ranks(r, e1, rev_start, native)
+        col_rev += deg_fwd[e1].astype(np.int32)
 
-    in_t_fwd = col_fwd < cap
-    in_t_rev = col_rev < cap
-    table = np.repeat(np.arange(n, dtype=np.int32)[:, None], cap, axis=1)
-    table[e0[in_t_fwd], col_fwd[in_t_fwd]] = e1[in_t_fwd]
-    table[e1[in_t_rev], col_rev[in_t_rev]] = e0[in_t_rev]
-    # overflow pairs vertex-sorted, i<j entries first within a vertex
-    ov_src = np.concatenate([e0[~in_t_fwd], e1[~in_t_rev]])
-    ov_dst = np.concatenate([e1[~in_t_fwd], e0[~in_t_rev]])
-    o = fg.radix_argsort(ov_src, native)
-    overflow = np.column_stack([ov_src[o], ov_dst[o]])
-    overflow_plan = build_overflow_plan(overflow)
+        in_t_fwd = col_fwd < cap
+        in_t_rev = col_rev < cap
+        table = np.repeat(np.arange(n, dtype=np.int32)[:, None], cap, axis=1)
+        table[e0[in_t_fwd], col_fwd[in_t_fwd]] = e1[in_t_fwd]
+        table[e1[in_t_rev], col_rev[in_t_rev]] = e0[in_t_rev]
 
-    ref_cap = max(_ref_prefix(deg_fwd.clip(max=cap), n), 1)
-    if ref_budget is not None:
-        # drop ref columns (cheapest pads first) until slots + spills fit
-        m = int(deg_fwd.max()) if n else 0
-        h = np.bincount(deg_fwd, minlength=m + 1)
-        gt = n - np.cumsum(h)  # gt[c] = #{v: fwd_deg_v > c}
-        total = n * ref_cap + int(gt[ref_cap:].sum())
-        while total > ref_budget and ref_cap > 1:
-            c = ref_cap - 1
-            gt_c = int(gt[c]) if c < len(gt) else 0
-            if gt_c >= n:
-                break  # the column is all real edges
-            total -= n - gt_c
-            ref_cap -= 1
+    with tracing.span("tables.overflow"):
+        # overflow pairs vertex-sorted, i<j entries first within a vertex
+        ov_src = np.concatenate([e0[~in_t_fwd], e1[~in_t_rev]])
+        ov_dst = np.concatenate([e1[~in_t_fwd], e0[~in_t_rev]])
+        o = fg.radix_argsort(ov_src, native)
+        overflow = np.column_stack([ov_src[o], ov_dst[o]])
+        overflow_plan = build_overflow_plan(overflow)
 
-    # ref maps follow the (vertex asc, column asc) order of i<j slots
-    sel_s = col_fwd[s] < ref_cap
-    kt = s[sel_s]
-    ko = s[~sel_s]
-    slot_edge = np.zeros((n, ref_cap), np.int32)
-    ref_valid = np.zeros((n, ref_cap), bool)
-    slot_edge[e0[kt], col_fwd[kt]] = kt
-    ref_valid[e0[kt], col_fwd[kt]] = True
+    with tracing.span("tables.refs"):
+        ref_cap = max(_ref_prefix(deg_fwd.clip(max=cap), n), 1)
+        if ref_budget is not None:
+            # drop ref columns (cheapest pads first) until slots + spills fit
+            m = int(deg_fwd.max()) if n else 0
+            h = np.bincount(deg_fwd, minlength=m + 1)
+            gt = n - np.cumsum(h)  # gt[c] = #{v: fwd_deg_v > c}
+            total = n * ref_cap + int(gt[ref_cap:].sum())
+            while total > ref_budget and ref_cap > 1:
+                c = ref_cap - 1
+                gt_c = int(gt[c]) if c < len(gt) else 0
+                if gt_c >= n:
+                    break  # the column is all real edges
+                total -= n - gt_c
+                ref_cap -= 1
 
-    overflow_lt = np.column_stack([e0[ko], e1[ko]])
-    edge_ref = np.full(E, -1, np.int32)
-    if ref_order == "slot":
-        edge_ref[kt] = col_fwd[kt] * n + e0[kt]
-        slot_edge = np.ascontiguousarray(slot_edge.T)
-        ref_valid = np.ascontiguousarray(ref_valid.T)
-    else:
-        edge_ref[kt] = e0[kt] * ref_cap + col_fwd[kt]
-    edge_ref[ko] = n * ref_cap + np.arange(len(ko), dtype=np.int32)
+        # ref maps follow the (vertex asc, column asc) order of i<j slots
+        sel_s = col_fwd[s] < ref_cap
+        kt = s[sel_s]
+        ko = s[~sel_s]
+        slot_edge = np.zeros((n, ref_cap), np.int32)
+        ref_valid = np.zeros((n, ref_cap), bool)
+        slot_edge[e0[kt], col_fwd[kt]] = kt
+        ref_valid[e0[kt], col_fwd[kt]] = True
+
+        overflow_lt = np.column_stack([e0[ko], e1[ko]])
+        edge_ref = np.full(E, -1, np.int32)
+        if ref_order == "slot":
+            edge_ref[kt] = col_fwd[kt] * n + e0[kt]
+            slot_edge = np.ascontiguousarray(slot_edge.T)
+            ref_valid = np.ascontiguousarray(ref_valid.T)
+        else:
+            edge_ref[kt] = e0[kt] * ref_cap + col_fwd[kt]
+        edge_ref[ko] = n * ref_cap + np.arange(len(ko), dtype=np.int32)
     out = {
         "overflow": overflow,
         "n": n,
@@ -281,141 +289,152 @@ def build_neighbor_table_binned(edges_user, n, overhead_rows=4096,
             f"neighbor-table slot space needs int32 indices: "
             f"n={n}, E={E} exceeds 2^31 slots"
         )
-    deg = (
-        np.bincount(edges_user[:, 0].astype(np.int64), minlength=n)
-        + np.bincount(edges_user[:, 1].astype(np.int64), minlength=n)
-    )
-    C_star = _optimal_table_cap(deg, n)
-    clipped = np.minimum(deg, C_star)
-    spec = plan_degree_buckets(clipped, overhead_rows=overhead_rows)
-    if len(spec) == 1:
-        return None
-
-    perm = fg.radix_argsort(clipped, native)
-    inv = np.empty(n, np.int32)
-    inv[perm] = np.arange(n, dtype=np.int32)
-    e_lo, e_hi = fg.apply_perm_minmax(
-        np.asarray(edges_user, np.int32), inv, native)
-    # one argsort of unique pack keys lo << bits(n) | hi, the JAX package's
-    order = fg.radix_argsort(
-        (e_lo.astype(np.uint64) << int(n).bit_length())
-        | e_hi.astype(np.uint64), native)
-    edges_int, edge_map = fg.permute_pairs(e_lo, e_hi, order, native)
-    e0 = edges_int[:, 0].copy()
-    e1 = edges_int[:, 1].copy()
-
-    counts = np.array([c for c, _ in spec], np.int64)
-    caps = np.array([cap for _, cap in spec], np.int64)
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    vcap = np.repeat(caps, counts).astype(np.int32)
-
-    # a row holds its forward (i<j) neighbors first, then the reverse ones
-    deg_fwd = np.bincount(e0, minlength=n)
-    deg_rev = np.bincount(e1, minlength=n)
-    fwd_start = np.concatenate([[0], np.cumsum(deg_fwd)[:-1]]).astype(np.int32)
-    col_fwd = np.arange(E, dtype=np.int32) - fwd_start[e0]
-    r = fg.radix_argsort(e1, native)
-    rev_start = np.concatenate([[0], np.cumsum(deg_rev)[:-1]]).astype(np.int32)
-    col_rev = fg.scatter_ranks(r, e1, rev_start, native)
-    col_rev += deg_fwd[e1].astype(np.int32)
-
-    slot_off64 = np.concatenate([[0], np.cumsum(vcap, dtype=np.int64)])
-    if int(slot_off64[-1]) >= 2**31:
-        raise ValueError(
-            f"neighbor-table slot space needs int32 indices: "
-            f"{int(slot_off64[-1])} slots exceeds 2^31"
+    with tracing.span("tables.degrees"):
+        deg = (
+            np.bincount(edges_user[:, 0].astype(np.int64), minlength=n)
+            + np.bincount(edges_user[:, 1].astype(np.int64), minlength=n)
         )
-    slot_off = slot_off64.astype(np.int32)
-    in_t_fwd = col_fwd < vcap[e0]
-    in_t_rev = col_rev < vcap[e1]
-    flat_table = np.repeat(np.arange(n, dtype=np.int32), vcap)
-    flat_table[slot_off[e0[in_t_fwd]] + col_fwd[in_t_fwd]] = e1[in_t_fwd]
-    flat_table[slot_off[e1[in_t_rev]] + col_rev[in_t_rev]] = e0[in_t_rev]
+        C_star = _optimal_table_cap(deg, n)
+        clipped = np.minimum(deg, C_star)
+        spec = plan_degree_buckets(clipped, overhead_rows=overhead_rows)
+        if len(spec) == 1:
+            return None
 
-    ov_src = np.concatenate([e0[~in_t_fwd], e1[~in_t_rev]])
-    ov_dst = np.concatenate([e1[~in_t_fwd], e0[~in_t_rev]])
-    o = fg.radix_argsort(ov_src, native)
-    overflow = np.column_stack([ov_src[o], ov_dst[o]]).astype(np.int32)
-    overflow_plan = build_overflow_plan(overflow)
+    with tracing.span("tables.renumber"):
+        perm = fg.radix_argsort(clipped, native)
+        inv = np.empty(n, np.int32)
+        inv[perm] = np.arange(n, dtype=np.int32)
+        e_lo, e_hi = fg.apply_perm_minmax(
+            np.asarray(edges_user, np.int32), inv, native)
+        # one argsort of unique pack keys lo << bits(n) | hi, the JAX
+        # package's
+        order = fg.radix_argsort(
+            (e_lo.astype(np.uint64) << int(n).bit_length())
+            | e_hi.astype(np.uint64), native)
+        edges_int, edge_map = fg.permute_pairs(e_lo, e_hi, order, native)
+        e0 = edges_int[:, 0].copy()
+        e1 = edges_int[:, 1].copy()
 
-    # per-bucket kNN ref prefix (same cost model as the flat ref_cap)
-    lt_deg = deg_fwd
-    ref_caps = np.zeros(len(spec), np.int64)
-    for g, (cnt, cap) in enumerate(spec):
-        ld = np.minimum(lt_deg[starts[g]:starts[g] + cnt], cap)
-        ref_caps[g] = _ref_prefix(ld, cnt) if cnt else 0
-    if ref_budget is not None:
-        # drop the ref column holding the fewest real edges until the total
-        # ref space (slot prefixes + i<j spills) fits the budget
-        n_gt = []
-        spill0 = 0
+    with tracing.span("tables.rows"):
+        counts = np.array([c for c, _ in spec], np.int64)
+        caps = np.array([cap for _, cap in spec], np.int64)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        vcap = np.repeat(caps, counts).astype(np.int32)
+
+        # a row holds its forward (i<j) neighbors first, then the reverse
+        # ones
+        deg_fwd = np.bincount(e0, minlength=n)
+        deg_rev = np.bincount(e1, minlength=n)
+        fwd_start = np.concatenate(
+            [[0], np.cumsum(deg_fwd)[:-1]]).astype(np.int32)
+        col_fwd = np.arange(E, dtype=np.int32) - fwd_start[e0]
+        r = fg.radix_argsort(e1, native)
+        rev_start = np.concatenate(
+            [[0], np.cumsum(deg_rev)[:-1]]).astype(np.int32)
+        col_rev = fg.scatter_ranks(r, e1, rev_start, native)
+        col_rev += deg_fwd[e1].astype(np.int32)
+
+        slot_off64 = np.concatenate([[0], np.cumsum(vcap, dtype=np.int64)])
+        if int(slot_off64[-1]) >= 2**31:
+            raise ValueError(
+                f"neighbor-table slot space needs int32 indices: "
+                f"{int(slot_off64[-1])} slots exceeds 2^31"
+            )
+        slot_off = slot_off64.astype(np.int32)
+        in_t_fwd = col_fwd < vcap[e0]
+        in_t_rev = col_rev < vcap[e1]
+        flat_table = np.repeat(np.arange(n, dtype=np.int32), vcap)
+        flat_table[slot_off[e0[in_t_fwd]] + col_fwd[in_t_fwd]] = e1[in_t_fwd]
+        flat_table[slot_off[e1[in_t_rev]] + col_rev[in_t_rev]] = e0[in_t_rev]
+
+    with tracing.span("tables.overflow"):
+        ov_src = np.concatenate([e0[~in_t_fwd], e1[~in_t_rev]])
+        ov_dst = np.concatenate([e1[~in_t_fwd], e0[~in_t_rev]])
+        o = fg.radix_argsort(ov_src, native)
+        overflow = np.column_stack([ov_src[o], ov_dst[o]]).astype(np.int32)
+        overflow_plan = build_overflow_plan(overflow)
+
+    with tracing.span("tables.refs"):
+        # per-bucket kNN ref prefix (same cost model as the flat ref_cap)
+        lt_deg = deg_fwd
+        ref_caps = np.zeros(len(spec), np.int64)
         for g, (cnt, cap) in enumerate(spec):
-            ld = lt_deg[starts[g]:starts[g] + cnt]
-            m = int(ld.max()) if cnt else 0
-            h = np.bincount(ld, minlength=m + 1)
-            gt = cnt - np.cumsum(h)
-            n_gt.append(gt)
-            spill0 += int(gt[ref_caps[g]:].sum())
-        total = int((counts * ref_caps).sum()) + spill0
-        while total > ref_budget:
-            best_g, best_d = -1, 0
-            for g, (cnt, _cap) in enumerate(spec):
-                if ref_caps[g] == 0:
-                    continue
-                c = int(ref_caps[g]) - 1
-                gt_c = int(n_gt[g][c]) if c < len(n_gt[g]) else 0
-                d = cnt - gt_c
-                if d > best_d:
-                    best_d, best_g = d, g
-            if best_g < 0:
-                break  # every remaining slot is a real edge
-            ref_caps[best_g] -= 1
-            total -= best_d
-    vref = np.repeat(ref_caps, counts).astype(np.int32)
-    ref_off = np.concatenate([[0], np.cumsum(counts * ref_caps)])
-    R_slots = int(ref_off[-1])
+            ld = np.minimum(lt_deg[starts[g]:starts[g] + cnt], cap)
+            ref_caps[g] = _ref_prefix(ld, cnt) if cnt else 0
+        if ref_budget is not None:
+            # drop the ref column holding the fewest real edges until the
+            # total ref space (slot prefixes + i<j spills) fits the budget
+            n_gt = []
+            spill0 = 0
+            for g, (cnt, cap) in enumerate(spec):
+                ld = lt_deg[starts[g]:starts[g] + cnt]
+                m = int(ld.max()) if cnt else 0
+                h = np.bincount(ld, minlength=m + 1)
+                gt = cnt - np.cumsum(h)
+                n_gt.append(gt)
+                spill0 += int(gt[ref_caps[g]:].sum())
+            total = int((counts * ref_caps).sum()) + spill0
+            while total > ref_budget:
+                best_g, best_d = -1, 0
+                for g, (cnt, _cap) in enumerate(spec):
+                    if ref_caps[g] == 0:
+                        continue
+                    c = int(ref_caps[g]) - 1
+                    gt_c = int(n_gt[g][c]) if c < len(n_gt[g]) else 0
+                    d = cnt - gt_c
+                    if d > best_d:
+                        best_d, best_g = d, g
+                if best_g < 0:
+                    break  # every remaining slot is a real edge
+                ref_caps[best_g] -= 1
+                total -= best_d
+        vref = np.repeat(ref_caps, counts).astype(np.int32)
+        ref_off = np.concatenate([[0], np.cumsum(counts * ref_caps)])
+        R_slots = int(ref_off[-1])
 
-    sel_t = col_fwd < vref[e0]
-    posv = (np.arange(n) - np.repeat(starts, counts)).astype(np.int32)
-    if ref_order == "slot":
-        # slot-major within each bucket: base_g + s*count_g + (v - start_g)
-        base = np.repeat(ref_off[:-1], counts).astype(np.int32)
-        cntv = np.repeat(counts, counts).astype(np.int32)
-        et = e0[sel_t]
-        ref_slot = base[et] + col_fwd[sel_t] * cntv[et] + posv[et]
-    else:
-        ref_row_off = (np.repeat(ref_off[:-1], counts)
-                       + posv * vref).astype(np.int32)
-        ref_slot = ref_row_off[e0[sel_t]] + col_fwd[sel_t]
-    ref_valid = np.zeros(R_slots, bool)
-    ref_valid[ref_slot] = True
-    slot_ref_edge = np.zeros(R_slots, np.int32)
-    eids_fwd = np.arange(E, dtype=np.int32)
-    slot_ref_edge[ref_slot] = eids_fwd[sel_t]
-
-    sel_o = ~sel_t
-    overflow_lt = np.column_stack([e0[sel_o], e1[sel_o]])
-    edge_ref = np.full(E, -1, np.int32)
-    edge_ref[sel_t] = ref_slot
-    edge_ref[sel_o] = R_slots + np.arange(int(sel_o.sum()), dtype=np.int32)
-    ref_edge = np.concatenate([slot_ref_edge, eids_fwd[sel_o]])
-
-    buckets = []
-    for g, (cnt, cap) in enumerate(spec):
-        lo, hi = slot_off[starts[g]], slot_off[starts[g] + cnt]
-        table = flat_table[lo:hi].reshape(cnt, cap)
-        bucket = {
-            "start": int(starts[g]),
-            "count": int(cnt),
-            "cap": int(cap),
-            "ref_cap": int(ref_caps[g]),
-            "ref_offset": int(ref_off[g]),
-        }
+        sel_t = col_fwd < vref[e0]
+        posv = (np.arange(n) - np.repeat(starts, counts)).astype(np.int32)
         if ref_order == "slot":
-            bucket["table_t"] = np.ascontiguousarray(table.T)
+            # slot-major within each bucket:
+            # base_g + s*count_g + (v - start_g)
+            base = np.repeat(ref_off[:-1], counts).astype(np.int32)
+            cntv = np.repeat(counts, counts).astype(np.int32)
+            et = e0[sel_t]
+            ref_slot = base[et] + col_fwd[sel_t] * cntv[et] + posv[et]
         else:
-            bucket["table"] = table
-        buckets.append(bucket)
+            ref_row_off = (np.repeat(ref_off[:-1], counts)
+                           + posv * vref).astype(np.int32)
+            ref_slot = ref_row_off[e0[sel_t]] + col_fwd[sel_t]
+        ref_valid = np.zeros(R_slots, bool)
+        ref_valid[ref_slot] = True
+        slot_ref_edge = np.zeros(R_slots, np.int32)
+        eids_fwd = np.arange(E, dtype=np.int32)
+        slot_ref_edge[ref_slot] = eids_fwd[sel_t]
+
+        sel_o = ~sel_t
+        overflow_lt = np.column_stack([e0[sel_o], e1[sel_o]])
+        edge_ref = np.full(E, -1, np.int32)
+        edge_ref[sel_t] = ref_slot
+        edge_ref[sel_o] = R_slots + np.arange(int(sel_o.sum()),
+                                              dtype=np.int32)
+        ref_edge = np.concatenate([slot_ref_edge, eids_fwd[sel_o]])
+
+        buckets = []
+        for g, (cnt, cap) in enumerate(spec):
+            lo, hi = slot_off[starts[g]], slot_off[starts[g] + cnt]
+            table = flat_table[lo:hi].reshape(cnt, cap)
+            bucket = {
+                "start": int(starts[g]),
+                "count": int(cnt),
+                "cap": int(cap),
+                "ref_cap": int(ref_caps[g]),
+                "ref_offset": int(ref_off[g]),
+            }
+            if ref_order == "slot":
+                bucket["table_t"] = np.ascontiguousarray(table.T)
+            else:
+                bucket["table"] = table
+            buckets.append(bucket)
     return {
         "perm": perm,
         "inv_perm": inv,

@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import tracing
 from .knn_binfold import kernel_blocks_per_sm
 
 # Philox4x32-10 (Salmon et al., SC'11; Random123): round multipliers and
@@ -392,43 +393,46 @@ def push_lists(count, n, key_of, pair_of, device):
     run's first index found by a search of the sorted chunk, and the
     rows' fill advanced once a run; the runs of key n, which may be
     millions long, add their zeros to SPREAD counters, not to one). No
-    step waits on the host. ``push_lists.builds`` counts the builds."""
-    push_lists.builds += 1
-    n = int(n)
-    verts = torch.arange(n + 1, dtype=torch.int32, device=device)
-    if count <= PUSH_SORT_CHUNK:
-        key, idx = torch.sort(key_of(0, count), stable=True)
-        ptr = torch.searchsorted(key, verts, out_int32=True)
-        del key
-        return (ptr,) + tuple(pair_of(idx))
-    chunks = [(lo, min(count, lo + PUSH_SORT_CHUNK))
-              for lo in range(0, count, PUSH_SORT_CHUNK)]
-    spread = torch.arange(PUSH_SORT_CHUNK, device=device) % SPREAD + n + 1
-    rows = torch.zeros(n + 1 + SPREAD, dtype=torch.int32, device=device)
-    for lo, hi in chunks:
-        key = key_of(lo, hi)
-        rows.index_add_(0, torch.where(key == n, spread[:hi - lo], key),
-                        torch.ones_like(key))
-    fill = torch.zeros(n + 1 + SPREAD, dtype=torch.int64, device=device)
-    torch.cumsum(rows[:n], 0, out=fill[1:n + 1])  # row starts; n: self
-    ptr = fill[:n + 1].to(torch.int32)
-    out_recv = torch.empty(count, dtype=torch.int32, device=device)
-    out_slot = torch.empty(count, dtype=torch.int32, device=device)
-    for lo, hi in chunks:
-        key, idx = torch.sort(key_of(lo, hi), stable=True)
-        first = torch.searchsorted(key, key)
-        at = torch.arange(hi - lo, device=device)
-        run = at == first
-        k = key.long()
-        pos = fill[k] + (at - first)
-        out_recv[pos], out_slot[pos] = pair_of(idx + lo)
-        ends = torch.searchsorted(key, key, right=True)
-        fill.index_add_(0, torch.where(run, k, spread[:hi - lo]),
-                        torch.where(run, ends - first, 0))
-    return ptr, out_recv, out_slot
+    step waits on the host. ``push_lists.builds`` counts the builds, each
+    the span ``ic.push``."""
+    with tracing.span("ic.push"):
+        push_lists.builds += 1
+        n = int(n)
+        verts = torch.arange(n + 1, dtype=torch.int32, device=device)
+        if count <= PUSH_SORT_CHUNK:
+            key, idx = torch.sort(key_of(0, count), stable=True)
+            ptr = torch.searchsorted(key, verts, out_int32=True)
+            del key
+            return (ptr,) + tuple(pair_of(idx))
+        chunks = [(lo, min(count, lo + PUSH_SORT_CHUNK))
+                  for lo in range(0, count, PUSH_SORT_CHUNK)]
+        spread = torch.arange(PUSH_SORT_CHUNK, device=device) % SPREAD + n + 1
+        rows = torch.zeros(n + 1 + SPREAD, dtype=torch.int32, device=device)
+        for lo, hi in chunks:
+            key = key_of(lo, hi)
+            rows.index_add_(0, torch.where(key == n, spread[:hi - lo], key),
+                            torch.ones_like(key))
+        fill = torch.zeros(n + 1 + SPREAD, dtype=torch.int64, device=device)
+        torch.cumsum(rows[:n], 0, out=fill[1:n + 1])  # row starts; n: self
+        ptr = fill[:n + 1].to(torch.int32)
+        out_recv = torch.empty(count, dtype=torch.int32, device=device)
+        out_slot = torch.empty(count, dtype=torch.int32, device=device)
+        for lo, hi in chunks:
+            key, idx = torch.sort(key_of(lo, hi), stable=True)
+            first = torch.searchsorted(key, key)
+            at = torch.arange(hi - lo, device=device)
+            run = at == first
+            k = key.long()
+            pos = fill[k] + (at - first)
+            out_recv[pos], out_slot[pos] = pair_of(idx + lo)
+            ends = torch.searchsorted(key, key, right=True)
+            fill.index_add_(0, torch.where(run, k, spread[:hi - lo]),
+                            torch.where(run, ends - first, 0))
+        return ptr, out_recv, out_slot
 
 
 push_lists.builds = 0
+tracing.counts_launches(push_lists, "builds")
 
 
 def table_push_lists(table, ov_src, ov_dst):
@@ -565,10 +569,27 @@ def cascade_state(seed_words, num_cols):
 
 def launch_result(active, ctl, stats):
     """(active, counts, steps) of a launch; ``stats`` (a dict) receives
-    'dense_steps', a (1,) int32 device tensor."""
+    'dense_steps', a (1,) int32 device tensor, and 'outcome', the steps,
+    the dense steps and the counts as one (2 + B,) int32 view of the
+    control words, to read with one copy."""
     if stats is not None:
         stats["dense_steps"] = ctl[DENSE_STEPS_WORD:DENSE_STEPS_WORD + 1]
+        stats["outcome"] = ctl[STEPS_WORD:]
     return active, ctl[CTL_WORDS:], ctl[STEPS_WORD:STEPS_WORD + 1]
+
+
+def frontier_work(active, out_ptr):
+    """(sources, pushed) of a finished cascade from its final (n, W)
+    active words and its push lists' row starts, a (2,) int64 tensor on
+    their device: the vertices active in some column, and the push-list
+    pairs in their rows. Where the cascade stopped on an empty frontier
+    before its max_iters, a vertex is active exactly when it was in the
+    frontier at some step, so these are the plain version's stats
+    'sources' and 'pushed' (``cascade_triples``), which the kernels do not
+    count."""
+    reached = (active != 0).any(dim=1)
+    rows = (out_ptr[1:] - out_ptr[:-1]).long()
+    return torch.stack([reached.sum(), (rows * reached).sum()])
 
 
 def ic_cascade_cuda(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
@@ -633,3 +654,4 @@ def ic_cascade(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
 
 
 ic_cascade.launches = 0
+tracing.counts_launches(ic_cascade)

@@ -44,6 +44,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils import tracing
 from .ic_cascade import (
     REF_CHUNK_WORDS,
     cascade_grid,
@@ -192,3 +193,4 @@ def ic_scatter(src, dst, seed_words, key, thr, max_iters, num_cols,
 
 
 ic_scatter.launches = 0
+tracing.counts_launches(ic_scatter)

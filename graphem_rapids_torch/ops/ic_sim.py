@@ -39,11 +39,13 @@ distribution, not run by run.
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .forces import _optimal_table_cap
 from .ic_cascade import (
     coin_threshold,
     column_mask_words,
     draw_key,
+    frontier_work,
     ic_cascade,
     table_push_lists,
 )
@@ -76,13 +78,14 @@ def _directed_np(edges):
 
 def directed_edges(edges, device):
     """``_directed_np``'s (src, dst) as int32 tensors on ``device``,
-    uploaded once."""
-    return tuple(torch.as_tensor(a, device=device)
-                 for a in _directed_np(edges))
+    uploaded once (span ``ic.upload``)."""
+    with tracing.span("ic.upload"):
+        return tuple(torch.as_tensor(a, device=device)
+                     for a in _directed_np(edges))
 
 
 def _ic_run(src, dst, words, p, generator, num_cols, max_iters, runs=None,
-            lists=None):
+            lists=None, stats=None):
     """Scatter-formulation batched IC cascade: one ``ic_scatter`` call.
 
     src, dst : (2E,) int32 directed edges (``directed_edges``).
@@ -91,11 +94,17 @@ def _ic_run(src, dst, words, p, generator, num_cols, max_iters, runs=None,
     seed set per column; column b draws the coins of run b mod ``runs``
     (None: every column its own). One key is drawn from ``generator``.
     Returns (num_cols,) int32 final activated counts, on the words'
-    device.
+    device. A dict ``stats`` receives the final 'active' words and the
+    'steps', and on a card the launch's 'dense_steps' and 'outcome'
+    (``ic_cascade.launch_result``). The launch is the span ``ic.cascade``.
     """
-    _, counts, _ = ic_scatter(src, dst, words, draw_key(generator),
-                              coin_threshold(p), int(max_iters),
-                              int(num_cols), runs, lists=lists)
+    with tracing.span("ic.cascade"):
+        active, counts, steps = ic_scatter(
+            src, dst, words, draw_key(generator), coin_threshold(p),
+            int(max_iters), int(num_cols), runs, lists=lists,
+            stats=stats if words.is_cuda else None)
+    if stats is not None:
+        stats.update(active=active, steps=steps)
     return counts
 
 
@@ -111,30 +120,40 @@ def cascade_plan_arrays(edges, n):
     of v, padded with v: a self slot never creates an activation, because
     v in the frontier implies v active), 'ov_dst'/'ov_src' (O,) int32 sorted
     by dst (the above-cap hub in-edges) and 'ov_ptr' (n + 1,) int32, the
-    row starts of that list."""
-    src2, dst2 = _directed_np(edges)
-    deg_in = np.bincount(dst2, minlength=n)
-    cap = max(1, _optimal_table_cap(deg_in, n)) if len(dst2) else 1
-    if n * cap > TABLE_BUDGET_SLOTS:
-        return None
-    order = np.argsort(dst2, kind="stable")
-    d_s, s_s = dst2[order], src2[order]
-    starts = np.concatenate([[0], np.cumsum(deg_in)[:-1]]).astype(np.int64)
-    rank = np.arange(len(d_s), dtype=np.int64) - starts[d_s]
-    in_t = rank < cap
-    table = np.repeat(np.arange(n, dtype=np.int32)[:, None], cap, axis=1)
-    table[d_s[in_t], rank[in_t]] = s_s[in_t]
-    ov_ptr = np.zeros(n + 1, np.int32)
-    np.cumsum(np.maximum(deg_in - cap, 0), out=ov_ptr[1:])
-    return {"table": table, "ov_dst": d_s[~in_t], "ov_src": s_s[~in_t],
-            "ov_ptr": ov_ptr}
+    row starts of that list. Spans: ``ic.plan``, with the stages
+    ``ic.plan.directed`` (the directed lists and the cap), ``ic.plan.sort``
+    (the stable argsort by destination) and ``ic.plan.fill`` (the table)."""
+    with tracing.span("ic.plan"):
+        with tracing.span("ic.plan.directed"):
+            src2, dst2 = _directed_np(edges)
+            deg_in = np.bincount(dst2, minlength=n)
+            cap = max(1, _optimal_table_cap(deg_in, n)) if len(dst2) else 1
+        if n * cap > TABLE_BUDGET_SLOTS:
+            return None
+        with tracing.span("ic.plan.sort"):
+            order = np.argsort(dst2, kind="stable")
+            d_s, s_s = dst2[order], src2[order]
+        with tracing.span("ic.plan.fill"):
+            starts = np.concatenate([[0], np.cumsum(deg_in)[:-1]]).astype(
+                np.int64)
+            rank = np.arange(len(d_s), dtype=np.int64) - starts[d_s]
+            in_t = rank < cap
+            table = np.repeat(np.arange(n, dtype=np.int32)[:, None], cap,
+                              axis=1)
+            table[d_s[in_t], rank[in_t]] = s_s[in_t]
+            ov_ptr = np.zeros(n + 1, np.int32)
+            np.cumsum(np.maximum(deg_in - cap, 0), out=ov_ptr[1:])
+            return {"table": table, "ov_dst": d_s[~in_t],
+                    "ov_src": s_s[~in_t], "ov_ptr": ov_ptr}
 
 
 def upload_plan(arrays, device):
-    """The plan's arrays as int32 tensors on ``device``."""
-    return {k: torch.as_tensor(np.ascontiguousarray(a, np.int32),
-                               device=device)
-            for k, a in arrays.items()}
+    """The plan's arrays as int32 tensors on ``device`` (span
+    ``ic.upload``)."""
+    with tracing.span("ic.upload"):
+        return {k: torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                   device=device)
+                for k, a in arrays.items()}
 
 
 def build_cascade_plan(edges, n, device):
@@ -161,7 +180,7 @@ def seed_words(seed_mask, num_sims):
 
 
 def _ic_run_table(plan, words, p, generator, num_cols, max_iters,
-                  runs=None):
+                  runs=None, stats=None):
     """Gather-formulation batched IC cascade: one ``ic_cascade`` call.
 
     words : (n, W) int32 packed seed words of ``num_cols`` columns, one
@@ -169,13 +188,56 @@ def _ic_run_table(plan, words, p, generator, num_cols, max_iters,
     runs into one batch); column b draws the coins of run b mod ``runs``
     (None: every column its own). One key is drawn from ``generator``.
     Returns (num_cols,) int32 final activated counts, on the plan's
-    device.
+    device. ``stats`` and the span as in ``_ic_run``.
     """
-    _, counts, _ = ic_cascade(plan["table"], plan["ov_ptr"], plan["ov_src"],
-                              words, draw_key(generator), coin_threshold(p),
-                              int(max_iters), int(num_cols), runs,
-                              lists=plan.get("push"))
+    with tracing.span("ic.cascade"):
+        active, counts, steps = ic_cascade(
+            plan["table"], plan["ov_ptr"], plan["ov_src"], words,
+            draw_key(generator), coin_threshold(p), int(max_iters),
+            int(num_cols), runs, lists=plan.get("push"),
+            stats=stats if words.is_cuda else None)
+    if stats is not None:
+        stats.update(active=active, steps=steps)
     return counts
+
+
+def _read_outcome(counts, stats):
+    """(counts (B,) numpy, steps) of a cascade on the host, with one copy:
+    on a card ``stats['outcome']`` holds the kernel's steps, dense steps
+    and counts in one view of its control words. The span ``ic.read``
+    (which waits for the cascade); the counters ``ic.cascades``,
+    ``ic.steps`` and ``ic.dense_steps`` (none on the CPU, whose plain
+    version has no dense step)."""
+    with tracing.span("ic.read"):
+        if "outcome" in stats:
+            row = stats["outcome"].cpu().numpy()
+            steps, dense, counts = int(row[0]), int(row[1]), row[2:]
+        else:
+            counts, steps, dense = counts.cpu().numpy(), int(
+                stats["steps"]), 0
+    tracing.count("ic.cascades")
+    tracing.count("ic.steps", steps)
+    tracing.count("ic.dense_steps", dense)
+    return counts, steps
+
+
+def _count_work(stats, lists, steps, max_iters):
+    """While a profiler records, the counters ``ic.sources`` and
+    ``ic.pushed`` of a cascade run along push ``lists``
+    (``frontier_work``, span ``ic.stats``, one more read): exact only when
+    the cascade stopped on an empty frontier before ``max_iters``, so a
+    cascade that ran them all counts ``ic.stats_capped`` instead. Without a
+    profiler nothing runs."""
+    if lists is None or not tracing.profiling():
+        return
+    if steps >= max_iters:
+        tracing.count("ic.stats_capped")
+        return
+    with tracing.span("ic.stats"):
+        sources, pushed = frontier_work(stats["active"],
+                                        lists[0]).tolist()
+    tracing.count("ic.sources", sources)
+    tracing.count("ic.pushed", pushed)
 
 
 def independent_cascade(edges, n, seeds, p=0.1, num_sims=64, max_iters=200,
@@ -203,16 +265,20 @@ def independent_cascade(edges, n, seeds, p=0.1, num_sims=64, max_iters=200,
     words = seed_words(seed_mask, int(num_sims))
     if plan is None:
         plan = build_cascade_plan(edges, n, dev)
+    stats = {}
     if plan is not None:
+        lists = plan.get("push")
         counts = _ic_run_table(plan, words, float(p), gen, int(num_sims),
-                               int(max_iters))
+                               int(max_iters), stats=stats)
     else:
         src, dst = directed_edges(edges, dev)
         lists = edge_push_lists(src, dst, n) if wants_push_lists(dev) \
             else None
         counts = _ic_run(src, dst, words, float(p), gen, int(num_sims),
-                         int(max_iters), lists=lists)
-    return counts.cpu().numpy(), max_iters
+                         int(max_iters), lists=lists, stats=stats)
+    counts, steps = _read_outcome(counts, stats)
+    _count_work(stats, lists, steps, int(max_iters))
+    return counts, max_iters
 
 
 def estimated_influence(edges, n, seeds, p=0.1, num_sims=64, max_iters=200,

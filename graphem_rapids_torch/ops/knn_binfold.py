@@ -22,6 +22,7 @@ import math
 import torch
 
 from .. import _build
+from ..utils import tracing
 
 # Pad coordinate for ref positions past E inside the last super-tile: the
 # squared distance ~1e30 stays finite (an inf pad would give inf - inf).
@@ -361,3 +362,4 @@ def knn_binfold(queries, refs, k, T=None, G=None, recall_target=0.95):
 
 
 knn_binfold.launches = 0
+tracing.counts_launches(knn_binfold)

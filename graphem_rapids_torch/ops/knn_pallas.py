@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils import tracing
 
 # Most neighbours per query: the TPU kernel's (S, 128) carry.
 MAX_K = 128
@@ -241,3 +242,4 @@ def knn_pallas(queries, refs, k, tile=1024):
 
 
 knn_pallas.launches = 0
+tracing.counts_launches(knn_pallas)

@@ -25,7 +25,6 @@ behind a slow host eigsh.
 """
 
 import logging
-import time
 
 import numpy as np
 import scipy.sparse as sp
@@ -33,6 +32,7 @@ import scipy.sparse.linalg as spla
 import torch
 from scipy.sparse.csgraph import laplacian as _csgraph_laplacian
 
+from ..utils import tracing
 from .forces import _optimal_table_cap, build_overflow_plan
 from .segment import segment_sum_sorted
 
@@ -201,6 +201,7 @@ def _build_lap_mm(plan, dinv, s, mesh=None):
     Y_ext = torch.zeros((n + 1, s), dtype=dinv.dtype, device=dinv.device)
 
     def lap_mm(X):
+        tracing.count("chebyshev.matvecs")
         torch.mul(dinv[:, None], X, out=Y_ext[:n])
         AY = Y_ext[table].sum(dim=1)
         if sharded:
@@ -236,30 +237,32 @@ def _spectral_chebyshev(adjacency, n_components, seed, n_outer=8,
     sharded = mesh is not None and mesh.world_size > 1
     if sharded:
         device = mesh.device
-    t0 = time.perf_counter()
 
-    if not sp.issparse(adjacency):
-        adjacency = sp.csr_matrix(adjacency)
-    A = sp.csr_matrix(adjacency + adjacency.transpose())
-    A.data = np.ones_like(A.data)
-    A.setdiag(0)
-    A.eliminate_zeros()
-    plan = _adjacency_matvec_plan(A, device=device)
+    with tracing.span("spectral.plan") as planned:
+        if not sp.issparse(adjacency):
+            adjacency = sp.csr_matrix(adjacency)
+        A = sp.csr_matrix(adjacency + adjacency.transpose())
+        A.data = np.ones_like(A.data)
+        A.setdiag(0)
+        A.eliminate_zeros()
+        plan = _adjacency_matvec_plan(A, device=device)
 
-    deg = plan["deg"]
-    dinv = torch.where(deg > 0, deg.pow(-0.5), torch.zeros_like(deg))
-    sqrt_deg = torch.sqrt(deg)
-    v0 = sqrt_deg / (torch.linalg.vector_norm(sqrt_deg) + 1e-30)  # L v0 = 0
+        deg = plan["deg"]
+        dinv = torch.where(deg > 0, deg.pow(-0.5), torch.zeros_like(deg))
+        sqrt_deg = torch.sqrt(deg)
+        # L v0 = 0
+        v0 = sqrt_deg / (torch.linalg.vector_norm(sqrt_deg) + 1e-30)
 
-    rng = np.random.default_rng(0 if seed is None else seed)
-    X0 = torch.as_tensor(rng.standard_normal((n, s)).astype(np.float32),
-                         device=device)
-    lap_mm = _build_lap_mm(plan, dinv, s, mesh=mesh)
-    X, ritz = _cheb_iterate(lap_mm, X0, v0, k=k, degree=degree,
-                            n_outer=n_outer)
-    ritz = ritz.cpu().numpy()
-    X = X[:, :k].cpu().numpy()
-    seconds = time.perf_counter() - t0
+        rng = np.random.default_rng(0 if seed is None else seed)
+        X0 = torch.as_tensor(rng.standard_normal((n, s)).astype(np.float32),
+                             device=device)
+    with tracing.span("spectral.iterate") as iterated:
+        lap_mm = _build_lap_mm(plan, dinv, s, mesh=mesh)
+        X, ritz = _cheb_iterate(lap_mm, X0, v0, k=k, degree=degree,
+                                n_outer=n_outer)
+        ritz = ritz.cpu().numpy()
+        X = X[:, :k].cpu().numpy()
+    seconds = planned.seconds + iterated.seconds
     if not np.all(np.isfinite(ritz)):
         raise SpectralDivergenceError("chebyshev subspace iteration diverged")
     if plan["ov_plan"] is not None:

@@ -77,6 +77,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import tracing
 
 # Terms per tile of the step's ids: one block of the kernel sorts a tile,
 # a term a thread.
@@ -453,3 +454,6 @@ def _card_dynamic(out, ids, values):
 segment_sum.launches = 0
 segment_sum_cluster.launches = 0
 sort_tiles.launches = 0
+tracing.counts_launches(segment_sum)
+tracing.counts_launches(segment_sum_cluster)
+tracing.counts_launches(sort_tiles)

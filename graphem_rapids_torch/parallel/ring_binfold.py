@@ -59,6 +59,7 @@ from ..ops.knn_binfold import (
     kernel_blocks_per_sm,
     params_for,
 )
+from ..utils import tracing
 
 __all__ = [
     "REF_LIMIT",
@@ -275,6 +276,7 @@ def ring_fold(q_shard, refs, carry, offset, T, G, n_super, out=None,
 
 
 ring_fold.launches = 0
+tracing.counts_launches(ring_fold)
 
 
 # ---- the whole ring on the cards ------------------------------------------

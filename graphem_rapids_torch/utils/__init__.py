@@ -1,4 +1,4 @@
-"""Utilities: strategy selection, memory budgets, profiling."""
+"""Utilities: strategy selection, memory budgets, profiling, tracing."""
 
 from .backend_selection import (
     BackendConfig,
@@ -18,7 +18,7 @@ from .memory_management import (
     get_optimal_chunk_size,
     monitor_memory_usage,
 )
-from .profiling import roofline, time_fn, trace
+from .profiling import time_fn, trace
 
 __all__ = [
     "BackendConfig",
@@ -35,7 +35,6 @@ __all__ = [
     "get_device_memory_info",
     "get_optimal_chunk_size",
     "monitor_memory_usage",
-    "roofline",
     "time_fn",
     "trace",
 ]

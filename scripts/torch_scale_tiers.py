@@ -295,7 +295,7 @@ def run_tier(tier, shrink, device, cache, profile=False):
     row["reckoned"] = reckon_bytes(n, adj.nnz // 2)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    with cs.setup_split() as split, Chebyshev() as cheb:
+    with cs.program_split(cs.SETUP_SPANS) as split, Chebyshev() as cheb:
         t0 = time.perf_counter()
         emb = grt.GraphEmbedderTorch(adj, device=device, init=init, **ENGINE)
         if cuda:

@@ -284,7 +284,8 @@ def test_independent_cascade_takes_one_scatter_call(monkeypatch):
                                         num_sims=70, key=9, device="cpu")
     assert len(calls) == 1
     (src, dst, words, key, thr, max_iters, cols, runs), kwargs = calls[0]
-    assert kwargs == {"lists": None}
+    # the plain version on the CPU: no push lists, no launch stats
+    assert kwargs == {"lists": None, "stats": None}
     assert src.dtype == dst.dtype == torch.int32 and src.shape == (
         2 * len(edges),)
     assert words.shape == (n, 3) and (thr, max_iters, cols, runs) == (
