@@ -17,7 +17,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .models.embedder import resolve_device
+from .models.embedder import csr_upper_edges, resolve_device
 from .ops.ic_cascade import column_mask_words, pack_columns_np
 from .ops.ic_scatter import edge_push_lists
 from .ops.ic_sim import (
@@ -27,6 +27,7 @@ from .ops.ic_sim import (
     build_cascade_plan,
     directed_edges,
     independent_cascade,
+    int32_edges,
     wants_push_lists,
 )
 from .utils import tracing
@@ -39,12 +40,19 @@ _SCATTER_STATE_WORDS = 1 << 27
 
 
 def _as_edges_and_n(G):
-    """(edges (E, 2), n) from a networkx graph, scipy adjacency or pair."""
+    """(edges (E, 2), n) from a networkx graph, scipy adjacency or pair.
+
+    A CSR adjacency's upper triangle is taken by the threaded C scan
+    (``csr_upper_edges``, int32), which gives ``nonzero()``'s pairs in its
+    order; another sparse format keeps ``nonzero()``, whose order is its
+    storage's."""
     if hasattr(G, "number_of_nodes") and hasattr(G, "edges"):
         n = G.number_of_nodes()
         edges = np.asarray(list(G.edges()), np.int64).reshape(-1, 2)
         return edges, n
     if sp.issparse(G):
+        if G.format == "csr":
+            return csr_upper_edges(G), G.shape[0]
         rows, cols = G.nonzero()
         mask = rows < cols
         return np.column_stack([rows[mask], cols[mask]]), G.shape[0]
@@ -207,7 +215,7 @@ def greedy_seed_selection(G, k, p=0.1, iterations_count=200, num_sims=32,
     """
     dev = resolve_device(device)
     edges, n = _as_edges_and_n(G)
-    edges = np.asarray(edges, np.int64).reshape(-1, 2)
+    edges = int32_edges(edges)
     gen = _generator(seed, dev)
     plan = build_cascade_plan(edges, n, dev)
     if plan is None:

@@ -42,6 +42,7 @@ import torch
 from ..utils import tracing
 from .forces import _optimal_table_cap
 from .ic_cascade import (
+    PUSH_SORT_CHUNK,
     coin_threshold,
     column_mask_words,
     draw_key,
@@ -66,22 +67,31 @@ def _generator(key, device):
     return gen
 
 
-def _directed_np(edges):
-    """(src, dst) (2E,) int32 arrays of the undirected edge list: both
-    directions, ``src = [e0; e1]`` and ``dst = [e1; e0]`` (the JAX
-    package's order)."""
-    edges = np.asarray(edges, np.int64).reshape(-1, 2)
-    src = np.concatenate([edges[:, 0], edges[:, 1]]).astype(np.int32)
-    dst = np.concatenate([edges[:, 1], edges[:, 0]]).astype(np.int32)
-    return src, dst
+def int32_edges(edges):
+    """The (E, 2) int32 form of an undirected edge list, copied only where
+    it is not int32 already: the port's vertex ids are int32, so n must be
+    below 2^31."""
+    return np.asarray(edges).reshape(-1, 2).astype(np.int32, copy=False)
+
+
+def _dst_list(edges, device):
+    """``dst = [e1; e0]``, the (2E,) int32 receivers of the undirected edge
+    list's two directions in the JAX package's order, built on ``device``
+    (None: the edges' own, the CPU for a numpy array) from one upload of
+    the (E, 2) int32 edges. Its half-turn is ``src = [e0; e1]``: directed
+    edge i runs from dst[(i + E) mod 2E] to dst[i]."""
+    e = torch.as_tensor(edges, device=device).to(torch.int32).reshape(-1, 2)
+    return torch.cat([e[:, 1], e[:, 0]])
 
 
 def directed_edges(edges, device):
-    """``_directed_np``'s (src, dst) as int32 tensors on ``device``,
-    uploaded once (span ``ic.upload``)."""
+    """(src, dst) (2E,) int32 tensors of the undirected edge list on
+    ``device``: both directions, ``src = [e0; e1]`` and ``dst = [e1; e0]``
+    (the JAX package's order), built there from one upload of the edges
+    (span ``ic.upload``)."""
     with tracing.span("ic.upload"):
-        return tuple(torch.as_tensor(a, device=device)
-                     for a in _directed_np(edges))
+        dst = _dst_list(edges, device)
+        return dst.roll(dst.shape[0] // 2), dst
 
 
 def _ic_run(src, dst, words, p, generator, num_cols, max_iters, runs=None,
@@ -114,55 +124,92 @@ def wants_push_lists(device):
     return torch.device(device).type == "cuda"
 
 
-def cascade_plan_arrays(edges, n):
-    """The gather IC's plan as numpy arrays, or None when the table would
-    exceed TABLE_BUDGET_SLOTS: 'table' (n, cap) int32 (row v = in-neighbours
-    of v, padded with v: a self slot never creates an activation, because
-    v in the frontier implies v active), 'ov_dst'/'ov_src' (O,) int32 sorted
-    by dst (the above-cap hub in-edges) and 'ov_ptr' (n + 1,) int32, the
-    row starts of that list. Spans: ``ic.plan``, with the stages
-    ``ic.plan.directed`` (the directed lists and the cap), ``ic.plan.sort``
-    (the stable argsort by destination) and ``ic.plan.fill`` (the table)."""
+def cascade_plan_arrays(edges, n, device=None):
+    """The gather IC's plan as int32 tensors on ``device`` (None: the
+    edges' own, the CPU for a numpy array), or None when the table would
+    exceed TABLE_BUDGET_SLOTS: 'table' (n, cap) (row v = in-neighbours of
+    v, padded with v: a self slot never creates an activation, because v
+    in the frontier implies v active), 'ov_dst'/'ov_src' (O,) sorted by dst
+    (the above-cap hub in-edges) and 'ov_ptr' (n + 1,), the row starts of
+    that list.
+
+    The edges are uploaded once and every pass over them runs where they
+    are: the receivers of the directed lists (``_dst_list``), a stable sort
+    by destination (the permutation of numpy's stable argsort), the row
+    starts by a search of the sorted keys (no atomics, which pile up on a
+    hub's row), each in-edge's source gathered from the receivers' half-
+    turn, its rank in its row, and the table filled by one scatter to
+    unique places. Only the (n,) degrees come to the host, for
+    ``_optimal_table_cap``. The degrees come from sorts of at most
+    PUSH_SORT_CHUNK receivers (the push lists' bound), so that a plan past
+    the budget stops without ever holding the whole sort; where one chunk
+    holds them all its sort is the plan's. Nothing of the build outlives
+    it but the four arrays. Spans: ``ic.plan``, with the stages
+    ``ic.plan.directed`` (the upload and the receivers), ``ic.plan.sort``
+    (the sorts, the row starts and the cap) and ``ic.plan.fill`` (the
+    sources, the table and the overflow). The counter ``ic.plan.card``
+    counts the plans built on a CUDA device."""
     with tracing.span("ic.plan"):
         with tracing.span("ic.plan.directed"):
-            src2, dst2 = _directed_np(edges)
-            deg_in = np.bincount(dst2, minlength=n)
-            cap = max(1, _optimal_table_cap(deg_in, n)) if len(dst2) else 1
+            dst2 = _dst_list(edges, device)
+            dev, m = dst2.device, dst2.shape[0]
+        with tracing.span("ic.plan.sort"):
+            probe = torch.arange(n + 1, dtype=torch.int32, device=dev)
+            deg_in = torch.zeros(n, dtype=torch.int32, device=dev)
+            for lo in range(0, max(m, 1), PUSH_SORT_CHUNK):
+                d_s, order = torch.sort(dst2[lo:lo + PUSH_SORT_CHUNK],
+                                        stable=True)
+                starts = torch.searchsorted(d_s, probe, out_int32=True)
+                deg_in += starts[1:] - starts[:-1]
+            cap = max(1, _optimal_table_cap(deg_in.cpu().numpy(), n)) \
+                if m else 1
         if n * cap > TABLE_BUDGET_SLOTS:
             return None
-        with tracing.span("ic.plan.sort"):
-            order = np.argsort(dst2, kind="stable")
-            d_s, s_s = dst2[order], src2[order]
+        if m > PUSH_SORT_CHUNK:
+            with tracing.span("ic.plan.sort"):
+                del d_s, order, starts
+                d_s, order = torch.sort(dst2, stable=True)
+                starts = torch.searchsorted(d_s, probe, out_int32=True)
+        del probe
         with tracing.span("ic.plan.fill"):
-            starts = np.concatenate([[0], np.cumsum(deg_in)[:-1]]).astype(
-                np.int64)
-            rank = np.arange(len(d_s), dtype=np.int64) - starts[d_s]
+            # sorted place j holds directed edge order[j], whose source
+            # sits half a turn along the receivers
+            s_s = dst2[order.add_(m // 2).remainder_(max(m, 1))]
+            del dst2, order
+            rank = torch.arange(m, dtype=torch.int32, device=dev) \
+                - starts[d_s]
+            del starts
             in_t = rank < cap
-            table = np.repeat(np.arange(n, dtype=np.int32)[:, None], cap,
-                              axis=1)
-            table[d_s[in_t], rank[in_t]] = s_s[in_t]
-            ov_ptr = np.zeros(n + 1, np.int32)
-            np.cumsum(np.maximum(deg_in - cap, 0), out=ov_ptr[1:])
-            return {"table": table, "ov_dst": d_s[~in_t],
-                    "ov_src": s_s[~in_t], "ov_ptr": ov_ptr}
+            table = torch.arange(n, dtype=torch.int32, device=dev)[
+                :, None].expand(n, cap).contiguous()
+            table.view(-1)[d_s[in_t] * cap + rank[in_t]] = s_s[in_t]
+            del rank
+            over = ~in_t
+            ov_dst, ov_src = d_s[over], s_s[over]
+            ov_ptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+            torch.cumsum((deg_in - cap).clamp_(min=0), 0, dtype=torch.int32,
+                         out=ov_ptr[1:])
+        if dev.type == "cuda":
+            tracing.count("ic.plan.card")
+        return {"table": table, "ov_dst": ov_dst, "ov_src": ov_src,
+                "ov_ptr": ov_ptr}
 
 
 def upload_plan(arrays, device):
     """The plan's arrays as int32 tensors on ``device`` (span
-    ``ic.upload``)."""
+    ``ic.upload``); tensors already there are not copied."""
     with tracing.span("ic.upload"):
-        return {k: torch.as_tensor(np.ascontiguousarray(a, np.int32),
-                                   device=device)
+        return {k: torch.as_tensor(a, dtype=torch.int32, device=device)
                 for k, a in arrays.items()}
 
 
 def build_cascade_plan(edges, n, device):
     """Self-padded in-neighbour table + hub overflow for the gather IC, on
-    ``device``: ``cascade_plan_arrays`` uploaded, or None beyond the table
-    budget. Where the cascades need them (``wants_push_lists``), the
+    ``device``: ``cascade_plan_arrays`` built there, or None beyond the
+    table budget. Where the cascades need them (``wants_push_lists``), the
     kernel's push lists under 'push' as (out_ptr, out_recv, out_slot),
     built once here on the device (``table_push_lists``)."""
-    arrays = cascade_plan_arrays(edges, n)
+    arrays = cascade_plan_arrays(edges, n, device)
     if arrays is None:
         return None
     plan = upload_plan(arrays, device)
@@ -257,7 +304,7 @@ def independent_cascade(edges, n, seeds, p=0.1, num_sims=64, max_iters=200,
     from ..models.embedder import resolve_device
 
     dev = resolve_device(device)
-    edges = np.asarray(edges, np.int64).reshape(-1, 2)
+    edges = int32_edges(edges)
     seed_np = np.zeros(n, bool)
     seed_np[np.asarray(list(seeds), np.int64)] = True
     seed_mask = torch.as_tensor(seed_np, device=dev)

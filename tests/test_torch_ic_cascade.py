@@ -16,10 +16,13 @@ conftest):
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
+from graphem_rapids_torch import influence as tinf
 from graphem_rapids_torch.ops import ic_cascade as icc
 from graphem_rapids_torch.ops import ic_sim as tic
+from graphem_rapids_torch.utils import tracing
 
 _MASK = np.uint64(0xFFFFFFFF)
 
@@ -266,20 +269,114 @@ def test_same_key_same_counts_through_ic_sim():
     np.testing.assert_array_equal(c1.numpy(), a)
 
 
+def _assert_plan_equals_jax(got, edges, n):
+    """The port's plan against the JAX package's ``build_cascade_plan``,
+    array for array, and ``ov_ptr`` against its ``ov_dst``."""
+    jic = pytest.importorskip("graphem_rapids_tpu.ops.ic_sim")
+    want = jic.build_cascade_plan(np.asarray(edges, np.int32), n)
+    for name in ("table", "ov_dst", "ov_src"):
+        w = np.asarray(want[name])
+        assert got[name].dtype == torch.int32
+        np.testing.assert_array_equal(got[name].numpy(), w)
+    ptr = got["ov_ptr"].numpy()
+    assert ptr[0] == 0 and ptr[-1] == len(want["ov_dst"])
+    np.testing.assert_array_equal(
+        np.repeat(np.arange(n), np.diff(ptr)), np.asarray(want["ov_dst"]))
+
+
 @pytest.mark.fast
 def test_plan_arrays_equal_jax():
-    jic = pytest.importorskip("graphem_rapids_tpu.ops.ic_sim")
     for edges, n in (_edges_with_hubs(), _edges_regular()):
-        want = jic.build_cascade_plan(edges.astype(np.int32), n)
-        got = tic.build_cascade_plan(edges, n, "cpu")
-        for name in ("table", "ov_dst", "ov_src"):
-            w = np.asarray(want[name])
-            assert got[name].dtype == torch.int32
-            np.testing.assert_array_equal(got[name].numpy(), w)
-        ptr = got["ov_ptr"].numpy()
-        assert ptr[0] == 0 and ptr[-1] == len(want["ov_dst"])
+        _assert_plan_equals_jax(tic.build_cascade_plan(edges, n, "cpu"),
+                                edges, n)
+
+
+def _edges_shuffled(seed=2):
+    """The hub graph's edges out of row-major order, a third of the pairs
+    written (j, i): a row's in-edges then come from both halves of the
+    directed lists, in an order only a stable sort keeps."""
+    edges, n = _edges_with_hubs()
+    rng = np.random.default_rng(seed)
+    edges = edges[rng.permutation(len(edges))]
+    flip = rng.random(len(edges)) < 1 / 3
+    edges[flip] = edges[flip][:, ::-1]
+    return edges, n
+
+
+def _edges_isolated_tail():
+    """The hub graph with 40 isolated vertices after its last."""
+    edges, n = _edges_with_hubs()
+    return edges.astype(np.int32), n + 40
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("chunk", [1 << 24, 7])
+@pytest.mark.parametrize("graph", ["shuffled", "isolated_tail"])
+def test_plan_arrays_equal_jax_on_more_edge_lists(monkeypatch, graph,
+                                                  chunk):
+    """Also with the degrees summed over sorts of 7 receivers, and the
+    whole sort redone for the fill."""
+    monkeypatch.setattr(tic, "PUSH_SORT_CHUNK", chunk)
+    edges, n = {"shuffled": _edges_shuffled,
+                "isolated_tail": _edges_isolated_tail}[graph]()
+    arrays = tic.cascade_plan_arrays(edges, n)
+    assert len(arrays["ov_src"]) > 0
+    _assert_plan_equals_jax(arrays, edges, n)
+    if graph == "isolated_tail":
         np.testing.assert_array_equal(
-            np.repeat(np.arange(n), np.diff(ptr)), np.asarray(want["ov_dst"]))
+            arrays["table"][-40:].numpy(),
+            np.repeat(np.arange(n - 40, n)[:, None], arrays["table"].shape[1],
+                      axis=1))
+        assert (arrays["ov_ptr"][-41:] == len(arrays["ov_dst"])).all()
+
+
+@pytest.mark.fast
+def test_plan_of_no_edges():
+    """No edge: a table of one self slot a vertex, no overflow; a cascade
+    leaves exactly the seeds."""
+    n = 6
+    arrays = tic.cascade_plan_arrays(np.zeros((0, 2), np.int32), n)
+    assert torch.equal(arrays["table"],
+                       torch.arange(n, dtype=torch.int32)[:, None])
+    assert arrays["ov_src"].numel() == arrays["ov_dst"].numel() == 0
+    assert torch.equal(arrays["ov_ptr"], torch.zeros(n + 1,
+                                                     dtype=torch.int32))
+    for a in arrays.values():
+        assert a.dtype == torch.int32
+    counts, _ = tic.independent_cascade(np.zeros((0, 2)), n, [1, 4], p=1.0,
+                                        num_sims=8, device="cpu")
+    assert (counts == 2).all()
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("chunk", [1 << 24, 7])
+def test_plan_past_the_budget_sends_the_estimate_to_scatter(monkeypatch,
+                                                            chunk):
+    """A table of exactly TABLE_BUDGET_SLOTS slots is built, one slot more
+    is not: the plan is None and the estimate takes the scatter form, with
+    the counts of ``ic_scatter``'s plain version under the same key; the
+    same where the degrees come from sorts of 7 receivers."""
+    from graphem_rapids_torch.ops import ic_scatter as ics
+
+    monkeypatch.setattr(tic, "PUSH_SORT_CHUNK", chunk)
+    edges, n = _edges_with_hubs()
+    slots = tic.cascade_plan_arrays(edges, n)["table"].numel()
+    monkeypatch.setattr(tic, "TABLE_BUDGET_SLOTS", slots)
+    assert tic.cascade_plan_arrays(edges, n) is not None
+    monkeypatch.setattr(tic, "TABLE_BUDGET_SLOTS", slots - 1)
+    assert tic.cascade_plan_arrays(edges, n) is None
+    assert tic.build_cascade_plan(edges, n, "cpu") is None
+    counts, _ = tic.independent_cascade(edges, n, [3, 50], p=0.3,
+                                        num_sims=40, key=7, device="cpu")
+    mask = torch.zeros(n, dtype=torch.bool)
+    mask[[3, 50]] = True
+    src, dst = tic.directed_edges(edges, "cpu")
+    _, want, _ = ics.ic_scatter_reference(
+        src, dst, tic.seed_words(mask, 40),
+        icc.draw_key(torch.Generator().manual_seed(7)),
+        icc.coin_threshold(0.3), 200, 40)
+    np.testing.assert_array_equal(counts, want.numpy())
+    assert (counts > 2).any()
 
 
 @pytest.mark.fast
@@ -357,3 +454,127 @@ def test_kernel_matches_plain(cuda_device, kind, B, runs, p, max_iters):
         thr, max_iters, B, runs)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _heavy_tail_adjacency(n=20_000, seed=0):
+    """A ring on n vertices and 3n chords, the first end of each min(zipf
+    (1.6), n) - 1 and the second uniform (the benchmark's heavy-tail family
+    at 1/50 of its size), as a symmetric CSR: vertex 0 is a hub of
+    thousands of edges, so the plan has an overflow."""
+    rng = np.random.default_rng(seed)
+    a = np.minimum(rng.zipf(1.6, 3 * n), n) - 1
+    b = rng.integers(0, n, 3 * n)
+    rows = np.concatenate([np.arange(n), a])
+    cols = np.concatenate([(np.arange(n) + 1) % n, b])
+    keep = rows != cols
+    adj = sp.coo_matrix((np.ones(keep.sum()), (rows[keep], cols[keep])),
+                        shape=(n, n)).tocsr()
+    adj = (adj + adj.T).tocsr()
+    adj.data[:] = 1
+    return adj
+
+
+@pytest.mark.cuda
+def test_card_plan_equals_cpu_plan(cuda_device):
+    """Built on the card from the numpy edges, from int64 edges, or from
+    edges already there, the plan is the CPU's bit for bit."""
+    edges, n = tinf._as_edges_and_n(_heavy_tail_adjacency())
+    want = tic.cascade_plan_arrays(edges, n)
+    assert len(want["ov_src"]) > 0
+    for got in (tic.cascade_plan_arrays(edges, n, cuda_device),
+                tic.cascade_plan_arrays(edges.astype(np.int64), n,
+                                        cuda_device),
+                tic.cascade_plan_arrays(torch.as_tensor(edges,
+                                                        device=cuda_device),
+                                        n)):
+        for name, w in want.items():
+            assert got[name].is_cuda and got[name].dtype == torch.int32
+            assert torch.equal(got[name].cpu(), w), name
+
+
+@pytest.mark.cuda
+def test_card_estimate_equals_cpu(cuda_device, monkeypatch):
+    """One coin key gives the same counts on the card and on the CPU. The
+    key is fixed here: an int key seeds a generator on each device, and the
+    two devices' generators draw different keys from one seed."""
+    monkeypatch.setattr(tic, "draw_key", lambda gen: torch.tensor(
+        [0x2545F491, 0x4F6CDD1D], dtype=torch.int64, device=gen.device))
+    adj = _heavy_tail_adjacency()
+    seeds = np.random.default_rng(1).choice(adj.shape[0], 10, replace=False)
+    kw = dict(p=0.1, num_sims=64, key=2**40 + 7)
+    edges, n = tinf._as_edges_and_n(adj)
+    card, _ = tic.independent_cascade(edges, n, seeds, device=cuda_device,
+                                      **kw)
+    cpu, _ = tic.independent_cascade(edges, n, seeds, device="cpu", **kw)
+    np.testing.assert_array_equal(card, cpu)
+    assert cpu.mean() > 20  # the cascades spread past their seeds
+    assert tinf.estimated_influence(adj, seeds, device=cuda_device, **kw) \
+        == tinf.estimated_influence(adj, seeds, device="cpu", **kw)
+
+
+@pytest.mark.cuda
+def test_card_plan_holds_only_its_own_bytes(cuda_device):
+    """Nothing of the build outlives it but the plan: the device memory
+    after it exceeds that before by the plan's own bytes (requested, and
+    as the caching allocator rounds them: 512 bytes in its small pool),
+    and falls back once the plan is let go."""
+    edges, n = tinf._as_edges_and_n(_heavy_tail_adjacency())
+    tic.cascade_plan_arrays(edges, n, cuda_device)  # the first calls' set-up
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated()
+    requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    arrays = tic.cascade_plan_arrays(edges, n, cuda_device)
+    torch.cuda.synchronize()
+    sizes = [a.numel() * a.element_size() for a in arrays.values()]
+    assert [a.untyped_storage().nbytes() for a in arrays.values()] == sizes
+    assert max(sizes) <= 1 << 20  # the small pool's
+    assert torch.cuda.memory_stats()["requested_bytes.all.current"] \
+        - requested == sum(sizes)
+    assert torch.cuda.memory_allocated() - alloc == sum(
+        -(-b // 512) * 512 for b in sizes)
+    del arrays
+    assert torch.cuda.memory_allocated() == alloc
+
+
+@pytest.mark.cuda
+def test_card_plan_past_the_budget_leaves_nothing(cuda_device, monkeypatch):
+    """Past the budget the decision on the card frees all it built, counts
+    no plan, and the estimate's scatter form gives the CPU's counts."""
+    monkeypatch.setattr(tic, "draw_key", lambda gen: torch.tensor(
+        [0x2545F491, 0x4F6CDD1D], dtype=torch.int64, device=gen.device))
+    adj = _heavy_tail_adjacency()
+    edges, n = tinf._as_edges_and_n(adj)
+    slots = tic.cascade_plan_arrays(edges, n, cuda_device)["table"].numel()
+    monkeypatch.setattr(tic, "TABLE_BUDGET_SLOTS", slots - 1)
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated()
+    built = tracing.snapshot()["counters"].get("ic.plan.card", 0)
+    assert tic.cascade_plan_arrays(edges, n, cuda_device) is None
+    assert torch.cuda.memory_allocated() == alloc
+    assert tracing.snapshot()["counters"].get("ic.plan.card", 0) == built
+    seeds = np.random.default_rng(1).choice(n, 10, replace=False)
+    kw = dict(p=0.1, num_sims=64, key=5)
+    card, _ = tic.independent_cascade(edges, n, seeds, device=cuda_device,
+                                      **kw)
+    cpu, _ = tic.independent_cascade(edges, n, seeds, device="cpu", **kw)
+    np.testing.assert_array_equal(card, cpu)
+    assert cpu.mean() > 20
+
+
+@pytest.mark.cuda
+def test_card_plan_counter_counts_each_estimate(cuda_device):
+    """``ic.plan.card`` counts one plan an estimate on the card, none on
+    the CPU."""
+    adj = _heavy_tail_adjacency()
+
+    def built():
+        return tracing.snapshot()["counters"].get("ic.plan.card", 0)
+
+    before = built()
+    for key in range(3):
+        tinf.estimated_influence(adj, [1, 2, 3], num_sims=32, key=key,
+                                 device=cuda_device)
+    assert built() == before + 3
+    tinf.estimated_influence(adj, [1, 2, 3], num_sims=32, key=0,
+                             device="cpu")
+    assert built() == before + 3

@@ -126,8 +126,9 @@ def test_push_lists_equal_numpy(monkeypatch, name, chunk):
     src, recv, slot = _np_table_triples(arrays)
     _assert_lists_equal(got, _np_push(src, recv, slot, n), n,
                         slot[src == recv].tolist())
-    src, dst = tic._directed_np(edges)
-    got = ics.edge_push_lists(*tic.directed_edges(edges, "cpu"), n)
+    directed = tic.directed_edges(edges, "cpu")
+    src, dst = (a.numpy() for a in directed)
+    got = ics.edge_push_lists(*directed, n)
     loops = np.flatnonzero(src == dst)
     _assert_lists_equal(got, _np_push(src.astype(np.int64),
                                       dst.astype(np.int64),

@@ -104,9 +104,14 @@ def _components(edges, n):
 
 
 @pytest.mark.fast
-def test_directed_edges_are_jax_order():
+@pytest.mark.parametrize("form", ["hub", "int64", "tensor", "empty"])
+def test_directed_edges_are_jax_order(form):
     edges, n = _hub_edges()
-    src, dst = tic.directed_edges(edges, "cpu")
+    if form == "empty":
+        edges = edges[:0]
+    given = {"int64": edges.astype(np.int64),
+             "tensor": torch.as_tensor(edges)}.get(form, edges)
+    src, dst = tic.directed_edges(given, "cpu")
     assert src.dtype == dst.dtype == torch.int32
     np.testing.assert_array_equal(src.numpy(), np.r_[edges[:, 0],
                                                      edges[:, 1]])

@@ -211,6 +211,54 @@ def test_ndlib_fallback_and_graph_inputs():
         np.testing.assert_array_equal(np.asarray(e_t), np.asarray(e_j))
 
 
+def _awkward_adjacency(case, seed=5):
+    """``_sparse_random``'s adjacency as a CSR with explicit zeros, with
+    each row's indices reversed (unsorted), with a diagonal, or all three;
+    or as a COO of shuffled entries."""
+    adj = _sparse_random().tocsr()
+    rng = np.random.default_rng(seed)
+    if case in ("diagonal", "all"):
+        adj = (adj + sp.eye(adj.shape[0], format="csr")).tocsr()
+    if case in ("zeros", "all"):
+        adj.data[rng.choice(adj.nnz, 40, replace=False)] = 0
+    if case in ("unsorted", "all"):
+        for r in range(adj.shape[0]):
+            lo, hi = adj.indptr[r], adj.indptr[r + 1]
+            adj.indices[lo:hi] = adj.indices[lo:hi][::-1].copy()
+            adj.data[lo:hi] = adj.data[lo:hi][::-1].copy()
+        adj.has_sorted_indices = False
+    if case == "coo":
+        coo = adj.tocoo()
+        order = rng.permutation(coo.nnz)
+        adj = sp.coo_matrix((coo.data[order], (coo.row[order],
+                                               coo.col[order])),
+                            shape=adj.shape)
+    return adj
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("case", ["plain", "zeros", "unsorted", "diagonal",
+                                  "all", "coo"])
+def test_sparse_extraction_equals_jax(case):
+    """A CSR's upper triangle comes from the C scan (the numpy line where
+    explicit zeros are stored), another format from ``nonzero()``: the
+    JAX package's pairs in its order, every case."""
+    jinf = pytest.importorskip("graphem_rapids_tpu.influence")
+    from graphem_rapids_torch import native
+
+    adj = _awkward_adjacency(case)
+    calls = native.csr_lt_edges_native.calls
+    e_t, n_t = tinf._as_edges_and_n(adj)
+    e_j, n_j = jinf._as_edges_and_n(adj)
+    assert n_t == n_j == adj.shape[0]
+    assert e_t.shape[1] == 2 and len(e_t) > 0
+    np.testing.assert_array_equal(e_t, np.asarray(e_j))
+    scanned = case in ("plain", "unsorted", "diagonal")
+    assert native.csr_lt_edges_native.calls == calls + scanned
+    if case != "coo":
+        assert e_t.dtype == np.int32
+
+
 @pytest.mark.fast
 def test_default_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -429,10 +429,11 @@ def test_estimate_records_its_stages(monkeypatch, scatter):
     recent = snap["recent"]
     top = _one(recent, "ic.estimate")
     assert top["parent"] is None
-    # past the table budget the plan stops after its directed lists, and
-    # the scatter form uploads the directed edges
+    # past the table budget the plan stops after its sort (the degrees that
+    # choose the cap come from the sorted keys), and the scatter form
+    # uploads the directed edges
     want = ["ic.extract", "ic.plan", "ic.upload", "ic.cascade", "ic.read"]
-    stages = ("ic.plan.directed",) if scatter else (
+    stages = ("ic.plan.directed", "ic.plan.sort") if scatter else (
         "ic.plan.directed", "ic.plan.sort", "ic.plan.fill")
     plan = _one(recent, "ic.plan")
     assert [r["name"] for r in recent if r["parent"] == plan["id"]] == list(
