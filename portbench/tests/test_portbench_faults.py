@@ -13,12 +13,10 @@ fails too; a sound run passes.
 import numpy as np
 import pytest
 import torch
-from conftest import run_cpu
-
-LAYOUT = ["skewed_1m.layout", "ring_10m.layout"]
+from conftest import cells, run_cpu
 
 
-@pytest.mark.parametrize("cell_name", LAYOUT + ["skewed_1m.spread"])
+@pytest.mark.parametrize("cell_name", cells())
 def test_sound_run_passes_and_control_fails(bench_root, cell_name):
     root, bench = bench_root
     result, _ = run_cpu(root, bench, cell_name, control=True)
@@ -111,7 +109,7 @@ def _over(result):
             if not c["value"] <= c["limit"]]
 
 
-@pytest.mark.parametrize("cell_name", LAYOUT)
+@pytest.mark.parametrize("cell_name", cells("layout"))
 @pytest.mark.parametrize("fault", [_unchanged, _half_batch, _altered,
                                    _same_sample])
 def test_layout_fault_is_caught(bench_root, monkeypatch, cell_name, fault):
@@ -161,17 +159,18 @@ def _spread_altered(monkeypatch):
                         lambda *a, **kw: original(*a, **kw) + 1.0 / 64)
 
 
+@pytest.mark.parametrize("cell_name", cells("spread"))
 @pytest.mark.parametrize("fault", [_spread_unchanged, _spread_half,
                                    _spread_altered])
-def test_spread_fault_is_caught(bench_root, monkeypatch, fault):
+def test_spread_fault_is_caught(bench_root, monkeypatch, cell_name, fault):
     root, bench = bench_root
     fault(monkeypatch)
-    result, _ = run_cpu(root, bench, "skewed_1m.spread")
+    result, _ = run_cpu(root, bench, cell_name)
     assert result["correct"] is False
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell_name", LAYOUT + ["skewed_1m.spread"])
+@pytest.mark.parametrize("cell_name", cells())
 def test_control_fails_on_the_card(bench_root, cell_name):
     """The control at a test's size on the card: the program passes, the
     reference in bfloat16 in its place does not."""

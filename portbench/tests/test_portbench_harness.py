@@ -10,15 +10,14 @@ import sys
 from pathlib import Path
 
 import pytest
-from conftest import REPO, run_cpu
+from conftest import REPO, cells, run_cpu
 
 from portbench.harness import cell, graphs, registry
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
-@pytest.mark.parametrize("cell_name", ["skewed_1m.layout", "ring_10m.layout",
-                                       "skewed_1m.spread"])
+@pytest.mark.parametrize("cell_name", cells())
 def test_result_keys_and_compared_last(bench_root, cell_name):
     root, bench = bench_root
     result, loaded = run_cpu(root, bench, cell_name)

@@ -6,7 +6,7 @@ import sys
 from types import SimpleNamespace
 
 import pytest
-from conftest import REPO, run_cpu
+from conftest import REPO, cells, run_cpu
 
 from portbench.harness import peaks, program_spans as ps, registry
 from portbench.harness import trace as tr
@@ -33,7 +33,7 @@ def _agrees(program, outside, rel, abs_s):
     return abs(program - outside) <= max(rel * outside, abs_s)
 
 
-@pytest.mark.parametrize("cell_name", ["skewed_1m.layout", "ring_10m.layout"])
+@pytest.mark.parametrize("cell_name", cells("layout"))
 def test_layout_readers_on_a_traced_cpu_run(bench_root, tracing, cell_name):
     root, bench = bench_root
     result, _ = run_cpu(root, bench, cell_name, trace=1)
@@ -56,9 +56,10 @@ def test_layout_readers_on_a_traced_cpu_run(bench_root, tracing, cell_name):
     assert m["positions_read_ms"] == pytest.approx(want / 1e6)
 
 
-def test_spread_reader_on_a_traced_cpu_run(bench_root, tracing):
+@pytest.mark.parametrize("cell_name", cells("spread"))
+def test_spread_reader_on_a_traced_cpu_run(bench_root, tracing, cell_name):
     root, bench = bench_root
-    result, _ = run_cpu(root, bench, "skewed_1m.spread", trace=1)
+    result, _ = run_cpu(root, bench, cell_name, trace=1)
     m = {k: v["value"] for k, v in result["metrics"].items()}
     assert "program_ic_host_s_per_estimate" in m
     # on the CPU the cascade has no push lists and no kernel to time
