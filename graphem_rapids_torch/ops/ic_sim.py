@@ -79,8 +79,15 @@ def _dst_list(edges, device):
     list's two directions in the JAX package's order, built on ``device``
     (None: the edges' own, the CPU for a numpy array) from one upload of
     the (E, 2) int32 edges. Its half-turn is ``src = [e0; e1]``: directed
-    edge i runs from dst[(i + E) mod 2E] to dst[i]."""
-    e = torch.as_tensor(edges, device=device).to(torch.int32).reshape(-1, 2)
+    edge i runs from dst[(i + E) mod 2E] to dst[i]. Where the upload
+    copies the edges to a device they were not on, their bytes as copied
+    are added to the counter ``ic.upload.bytes``."""
+    home = edges.device if isinstance(edges, torch.Tensor) \
+        else torch.device("cpu")
+    e = torch.as_tensor(edges, device=device)
+    if e.device != home:
+        tracing.count("ic.upload.bytes", e.numel() * e.element_size())
+    e = e.to(torch.int32).reshape(-1, 2)
     return torch.cat([e[:, 1], e[:, 0]])
 
 
@@ -88,7 +95,7 @@ def directed_edges(edges, device):
     """(src, dst) (2E,) int32 tensors of the undirected edge list on
     ``device``: both directions, ``src = [e0; e1]`` and ``dst = [e1; e0]``
     (the JAX package's order), built there from one upload of the edges
-    (span ``ic.upload``)."""
+    (span ``ic.upload``; counter ``ic.upload.bytes``, ``_dst_list``)."""
     with tracing.span("ic.upload"):
         dst = _dst_list(edges, device)
         return dst.roll(dst.shape[0] // 2), dst
@@ -148,7 +155,9 @@ def cascade_plan_arrays(edges, n, device=None):
     ``ic.plan.directed`` (the upload and the receivers), ``ic.plan.sort``
     (the sorts, the row starts and the cap) and ``ic.plan.fill`` (the
     sources, the table and the overflow). The counter ``ic.plan.card``
-    counts the plans built on a CUDA device."""
+    counts the plans built on a CUDA device, ``ic.plan.over_budget`` the
+    plans that stop past the budget; the upload adds to
+    ``ic.upload.bytes`` (``_dst_list``)."""
     with tracing.span("ic.plan"):
         with tracing.span("ic.plan.directed"):
             dst2 = _dst_list(edges, device)
@@ -164,6 +173,7 @@ def cascade_plan_arrays(edges, n, device=None):
             cap = max(1, _optimal_table_cap(deg_in.cpu().numpy(), n)) \
                 if m else 1
         if n * cap > TABLE_BUDGET_SLOTS:
+            tracing.count("ic.plan.over_budget")
             return None
         if m > PUSH_SORT_CHUNK:
             with tracing.span("ic.plan.sort"):
