@@ -223,8 +223,11 @@ Phases:
 22. IC cascade kernel against its plain version, run after phase 21:
     csrc/ic_cascade.cu (one cooperative launch per cascade) and
     ic_cascade_reference on the same packed seed words and Philox key, at
-    the 100K plan (cap 8, no overflow) and the 1M plan (cap 13, 35,188
-    overflow in-edges) with 10 random seeds in 64 columns at p=0.1, and at
+    the 100K plan (cap 8, no overflow), the 1M plan (cap 13, 35,188
+    overflow in-edges, no chunk) and the heavy-tail 1M plan (ring + 3M
+    zipf chords, cap 7, about 2.28M overflow in-edges in some 3,100
+    chunks of the dense pass, the 16 largest hubs vertices 0-15) with 10
+    random seeds in 64 columns at p=0.1, and at
     the hub graph's first greedy chunk (64 candidates x 32 runs, B=2048,
     W=64, run r of every candidate on the same coins, as greedy runs it)
     at p=0.2; each also at p=0 and p=1, and each in every step mode of
@@ -1425,12 +1428,13 @@ def exact_counts(adj, mask):
 
 
 def ic_modes(fn, args, lists, want, limit, step_pairs):
-    """Phases 22 and 23: the cascade wrapper ``fn`` on ``args`` and the push
-    ``lists`` in each mode of IC_MODES against the plain version's result
-    ``want``: per mode bit_equal (active words, counts, steps), the
-    launches, the steps and dense steps, and the dense steps the plain
-    version's pairs per step (``step_pairs``) give at the auto ``limit``.
-    Returns the rows and the auto run's result."""
+    """Phases 22 and 23: the cascade wrapper ``fn`` on ``args`` and the
+    push ``lists`` (the gather form's with its chunk list) in each mode of
+    IC_MODES against the plain version's result ``want``: per mode
+    bit_equal (active words, counts, steps), the launches, the steps and
+    dense steps, and the dense steps the plain version's pairs per step
+    (``step_pairs``) give at the auto ``limit``. Returns the rows and the
+    auto run's result."""
     rows, auto = {}, None
     for mode in IC_MODES:
         stats = {}
@@ -1495,7 +1499,9 @@ def push_list_build(build):
 def phase_ic_kernel(fp32_instr_per_s, adj100k, adj1m, device="cuda"):
     """Phase 22: the IC cascade kernel against its plain version on the
     card, bit for bit (active words, counts, steps), at each of ic_cases'
-    shapes for its p, p=0 and p=1, in each mode (push, dense, auto); one
+    shapes (the 100K, 1M and heavy-tail 1M plans, each row with its chunk
+    count, and the hub graph's greedy chunk) for its p, p=0 and p=1, in
+    each mode (push, dense, auto); one
     launch per cascade; the dense steps as the plain version's pairs per
     step give them; p=0 leaves exactly the seeds and p=1 exactly their
     components. At each shape's p the kernel's time per call (auto) and
@@ -1508,13 +1514,16 @@ def phase_ic_kernel(fp32_instr_per_s, adj100k, adj1m, device="cuda"):
 
     key = torch.tensor(IC_KEY, dtype=torch.int64, device=device)
     out = {"max_abs_err": 0}
-    graphs = [("random_8_regular_100k", adj100k), ("ring_chords_1m", adj1m)]
+    graphs = [("random_8_regular_100k", adj100k), ("ring_chords_1m", adj1m),
+              ("skewed_1m", skewed_graph())]
     for label, adj, mask, p, runs in ic_cases(graphs, device):
         edges, n = _as_edges_and_n(adj)
         plan = tic.build_cascade_plan(edges, n, device)
         table, ptr, src = plan["table"], plan["ov_ptr"], plan["ov_src"]
+        n_chunks = int(plan["push"][3].shape[0])
         lists, build_ms, list_bytes = push_list_build(
-            lambda: icc.table_push_lists(table, src, plan["ov_dst"]))
+            lambda: icc.table_push_lists(table, src, plan["ov_dst"], ptr,
+                                         n_chunks))
         cap, O, B = table.shape[1], src.shape[0], mask.shape[1]
         W = -(-B // 32)
         limit = icc.table_dense_limit("auto", n, cap, O, W)
@@ -1530,8 +1539,9 @@ def phase_ic_kernel(fp32_instr_per_s, adj100k, adj1m, device="cuda"):
             err = int((got[1] - want[1]).abs().max())
             out["max_abs_err"] = max(out["max_abs_err"], err)
             steps = int(got[2])
-            row = dict(graph=label, n=n, cap=cap, W=W, B=B, O=O, p=pp,
-                       runs=runs, steps=steps, modes=modes,
+            row = dict(graph=label, n=n, cap=cap, W=W, B=B, O=O,
+                       chunks=n_chunks, p=pp, runs=runs, steps=steps,
+                       modes=modes,
                        dense_limit=limit, coins=stats["coins"],
                        pushed=stats["pushed"], sources=stats["sources"],
                        step_pairs=stats["step_pairs"],

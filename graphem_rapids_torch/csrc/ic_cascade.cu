@@ -26,15 +26,25 @@
 // overflow in-edges regrouped by source), and only the vertices hit and
 // the queue's are touched besides; one grid barrier a step. This file
 // brings the dense pass, taken where the queue's pairs pass dense_limit
-// (the wrapper's DENSE_BETA times G times the n * cap + O slots): a
-// warp-strided walk of the (vertex, word) items over the table, reading
-// the frontier buffer whole. Each item loads kBatch table ids and their
-// frontier words before it draws any coin, so the loads of a batch are in
-// flight together, and the early exit (every column active or hit) is
-// tested once a batch. An overflow row of at least kCoopMin in-edges is
-// walked by the whole warp, 32 in-edges at a time, its fired bits
-// OR-reduced to the owner (__reduce_or_sync); short rows the owner walks
-// alone.
+// (the wrapper's DENSE_BETA times G times the n * cap + O slots). Its work
+// items are of two kinds, handed out warp-strided over the whole grid in
+// one pass, the longest chains first:
+// - (chunk, word): the plan's chunk list cuts every overflow row of at
+//   least long_row in-edges (ops/ic_cascade.py LONG_ROW) into chunks of
+//   chunk_len in-edges (CHUNK_EDGES), the last of a row partial. A warp
+//   takes one such item: it reads the word's open columns (neither active,
+//   in the frontier, nor hit yet), skips the chunk if none is open, and
+//   walks its in-edges, each lane kRowBatch of them (ids, then frontier
+//   words, before any coin) a round, until the chunk ends or every open
+//   column has fired; the lanes' fired bits are OR-reduced
+//   (__reduce_or_sync) and one lane ORs them into hit_t with atomicOr.
+// - (vertex, word), 32 a warp: a walk of the table row, which loads kBatch
+//   table ids and their frontier words before it draws any coin, so the
+//   loads of a batch are in flight together, the early exit (every column
+//   active or hit) tested once a batch; then the overflow row, if it is
+//   shorter than long_row, by the owner alone. The owner stores its hit
+//   word, or ORs it in atomically where chunks of its row may write the
+//   same word.
 //
 // What bounds it on an H100: not bytes. What a cascade must move is the
 // seed words read and the active words written (2 n W words) and, of the
@@ -53,7 +63,11 @@
 //
 // Load balance: a push step hands out the queue's pairs by their offsets
 // (a hub's row spreads over as many warps as its pairs fill); a dense step
-// gives a long overflow row to the whole warp.
+// hands out a long overflow row's chunks over the grid. A row walked by one
+// warp would set the step's pace: on the heavy-tail plan (zipf ranks, so
+// vertices 0-15 are the 16 largest hubs, 1.88M in-edges) the one warp of
+// vertices 0-15 would walk their rows one after another in every dense
+// step while the rest of the grid waits at its barrier.
 
 #include <cstdint>
 
@@ -67,26 +81,99 @@ using ic::kFull;
 using ic::kThreads;
 
 constexpr int kBatch = 8;     // table slots loaded before their coins
-constexpr int kCoopMin = 16;  // overflow rows this long take the warp
+constexpr int kRowBatch = 4;  // a chunk's in-edges a lane loads a round
 
 struct GatherDense {
   const int32_t* table;
   const int32_t* ov_ptr;
   const int32_t* ov_src;
+  const int32_t* chunks;  // (n_chunks, 2): row v, first in-edge o0
   int cap;
+  int n_chunks;
+  int long_row;   // overflow rows this long are walked by their chunks
+  int chunk_len;  // in-edges of a chunk (the last of a row fewer)
+
+  // Item q = k * W + w of the chunk items, by the whole warp: chunk k's
+  // in-edges against word w of its row's vertex.
+  __device__ __forceinline__ void chunk(const ic::Cascade& c, int t,
+                                        long long q, uint32_t last,
+                                        uint32_t k0, uint32_t k1) const {
+    const int lane = threadIdx.x & 31;
+    const uint32_t tt = static_cast<uint32_t>(t);
+    const uint32_t runs = static_cast<uint32_t>(c.runs);
+    const uint32_t* frontier = c.hit((t + 2) % 3);
+    uint32_t* hit_t = c.hit(t % 3);
+    const long long k = q / c.W;
+    const int w = static_cast<int>(q - k * c.W);
+    int v = __ldg(chunks + 2 * k);
+    const int o0 = __ldg(chunks + 2 * k + 1);
+    // a chunk whose first in-edge lies outside its row's (a list not of
+    // this plan) walks nothing, and reads nothing out of range
+    if (v < 0 || v >= c.n) v = 0;
+    const int r1 = __ldg(ov_ptr + v + 1);
+    const int o1 = o0 >= __ldg(ov_ptr + v) && o0 < r1
+                       ? o0 + min(chunk_len, r1 - o0)
+                       : o0;
+    const long long vi = static_cast<long long>(v) * c.W + w;
+    // one lane reads the word, so that every lane holds the same columns
+    uint32_t open = 0u;
+    if (lane == 0 && o1 > o0) {
+      open = ~(__ldcg(c.active + vi) | __ldcg(frontier + vi) |
+               __ldcg(hit_t + vi)) &
+             (w == c.W - 1 ? last : kFull);
+    }
+    open = __shfl_sync(kFull, open, 0);
+    uint32_t acc = 0u;
+    for (int a = o0; a < o1 && open; a += 32 * kRowBatch) {
+      uint32_t f[kRowBatch];
+#pragma unroll
+      for (int r = 0; r < kRowBatch; ++r) {
+        const int o = a + 32 * r + lane;
+        f[r] = o < o1 ? __ldcg(frontier +
+                               static_cast<long long>(__ldg(ov_src + o)) *
+                                   c.W + w)
+                      : 0u;
+      }
+      uint32_t mine = 0u;
+#pragma unroll
+      for (int r = 0; r < kRowBatch; ++r) {
+        const uint32_t cand = f[r] & open & ~mine;
+        if (cand) {
+          mine |= ic::fired(cand, tt, v,
+                            static_cast<uint32_t>(cap + a + 32 * r + lane), w,
+                            runs, k0, k1, c.thr);
+        }
+      }
+      mine = __reduce_or_sync(kFull, mine);
+      acc |= mine;
+      open &= ~mine;
+    }
+    bool app = false;
+    if (lane == 0 && acc) {
+      atomicOr(hit_t + vi, acc);
+      app = ic::touch(c.stamp(), v, t);
+    }
+    ic::append(c, t % 3, app, v);
+  }
 
   __device__ __forceinline__ void operator()(const ic::Cascade& c, int t,
                                              uint32_t k0, uint32_t k1) const {
     const int lane = threadIdx.x & 31;
     const long long items = static_cast<long long>(c.n) * c.W;
+    const long long chunk_items = static_cast<long long>(n_chunks) * c.W;
+    const long long tasks = chunk_items + (items + 31) / 32;
     const uint32_t last = (c.B & 31) ? (1u << (c.B & 31)) - 1u : kFull;
     const uint32_t tt = static_cast<uint32_t>(t);
     const uint32_t runs = static_cast<uint32_t>(c.runs);
     const uint32_t* frontier = c.hit((t + 2) % 3);
     uint32_t* hit_t = c.hit(t % 3);
-    for (long long base = ic::global_warp() * 32; base < items;
-         base += ic::grid_warps() * 32) {
-      const long long i = base + lane;
+    for (long long task = ic::global_warp(); task < tasks;
+         task += ic::grid_warps()) {
+      if (task < chunk_items) {
+        chunk(c, t, task, last, k0, k1);
+        continue;
+      }
+      const long long i = (task - chunk_items) * 32 + lane;
       int v = 0, w = 0, o0 = 0, o1 = 0;
       uint32_t need = 0u;  // columns neither active nor hit yet
       uint32_t hit = 0u;
@@ -127,30 +214,8 @@ struct GatherDense {
         o0 = __ldg(ov_ptr + v);
         o1 = __ldg(ov_ptr + v + 1);
       }
-      // long overflow rows: the warp walks each, 32 in-edges at a time
-      unsigned coop = __ballot_sync(kFull, (need & ~hit) && o1 - o0 >= kCoopMin);
-      while (coop) {
-        const int src_lane = __ffs(coop) - 1;
-        coop &= coop - 1u;
-        const int vl = __shfl_sync(kFull, v, src_lane);
-        const int wl = __shfl_sync(kFull, w, src_lane);
-        const uint32_t open = __shfl_sync(kFull, need & ~hit, src_lane);
-        const int a0 = __shfl_sync(kFull, o0, src_lane);
-        const int a1 = __shfl_sync(kFull, o1, src_lane);
-        uint32_t acc = 0u;
-        for (int o = a0 + lane; o < a1; o += 32) {
-          const long long u = __ldg(ov_src + o);
-          const uint32_t cand =
-              __ldcg(frontier + u * c.W + wl) & open & ~acc;
-          if (cand) {
-            acc |= ic::fired(cand, tt, vl, static_cast<uint32_t>(cap + o), wl,
-                             runs, k0, k1, c.thr);
-          }
-        }
-        acc = __reduce_or_sync(kFull, acc);
-        if (lane == src_lane) hit |= acc;
-      }
-      if (o1 - o0 < kCoopMin) {
+      const bool chunked = o1 - o0 >= long_row;  // the chunk items walk it
+      if (!chunked) {
         for (int o = o0; o < o1 && (need & ~hit); ++o) {
           const long long u = __ldg(ov_src + o);
           const uint32_t cand = __ldcg(frontier + u * c.W + w) & need & ~hit;
@@ -162,7 +227,11 @@ struct GatherDense {
       }
       bool app = false;
       if (hit) {
-        hit_t[i] = hit;  // this item's own word: no other writer this step
+        if (chunked) {
+          atomicOr(hit_t + i, hit);
+        } else {
+          hit_t[i] = hit;  // this item's own word: no other writer this step
+        }
         app = ic::touch(c.stamp(), v, t);
       }
       ic::append(c, t % 3, app, v);
@@ -189,7 +258,11 @@ extern "C" int graphem_ic_cascade_blocks_per_sm(int threads) {
 
 // Launches one cascade on `stream` as a cooperative kernel and returns a
 // CUDA error code (0 on success). table (n, cap), ov_ptr (n + 1,) and
-// ov_src (O,) are int32; out_ptr (n + 1,), out_recv and out_slot (P,) are
+// ov_src (O,) are int32; chunks (n_chunks, 2) int32 is the chunk list of
+// the overflow rows of at least long_row in-edges (row, first in-edge; a
+// chunk of chunk_len in-edges, the last of a row fewer), which must cover
+// those rows exactly (a chunk whose first in-edge lies outside its row
+// walks nothing); out_ptr (n + 1,), out_recv and out_slot (P,) are
 // the plan's push lists (int32); seed and active are (n, W) 32-bit words
 // and hits (3, n, W), the last two uninitialized; lists is (7, n) int32
 // scratch; key is (2,) int64 on the device (two 32-bit Philox key words);
@@ -200,20 +273,24 @@ extern "C" int graphem_ic_cascade_blocks_per_sm(int threads) {
 // The wrapper checks the shapes and types.
 extern "C" int graphem_ic_cascade_launch(
     const int32_t* table, const int32_t* ov_ptr, const int32_t* ov_src,
-    const int32_t* out_ptr, const int32_t* out_recv, const int32_t* out_slot,
-    const uint32_t* seed, uint32_t* active, uint32_t* hits, int* lists, const long long* key, int* ctl_words, int n, int cap, int W,
-    int B, int runs, int G, unsigned long long thr, int max_iters,
+    const int32_t* chunks, const int32_t* out_ptr, const int32_t* out_recv,
+    const int32_t* out_slot, const uint32_t* seed, uint32_t* active,
+    uint32_t* hits, int* lists, const long long* key, int* ctl_words, int n,
+    int cap, int n_chunks, int long_row, int chunk_len, int W, int B,
+    int runs, int G, unsigned long long thr, int max_iters,
     long long dense_limit, int nb, void* stream) {
   if (n < 1 || cap < 1 || W < 1 || B < 1 || B > 32 * W || runs < 1 ||
       G < 1 || G > 32 || (G & (G - 1)) || nb < 1 || max_iters < 0 ||
-      thr > (1ull << 32)) {
+      thr > (1ull << 32) || n_chunks < 0 || (n_chunks && !chunks) ||
+      long_row < 1 || chunk_len < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ic::Cascade c{seed, active, hits, lists, out_ptr, out_recv,
                 out_slot, key, reinterpret_cast<ic::Ctl*>(ctl_words),
                 ctl_words + sizeof(ic::Ctl) / sizeof(int), n, W, B, runs, G,
                 max_iters, thr, dense_limit};
-  GatherDense dense{table, ov_ptr, ov_src, cap};
+  GatherDense dense{table, ov_ptr, ov_src, chunks, cap,
+                    n_chunks, long_row, chunk_len};
   void* args[] = {&c, &dense};
   const cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(ic_cascade_kernel), dim3(nb),

@@ -54,6 +54,12 @@ once per plan, never per launch; a CUDA call without them raises. The
 private ``mode`` argument ("auto", "push" or "dense") forces a mode for
 the tests and the smoke run; the result is the same in every mode.
 
+The chunk list. The dense pass hands the overflow rows of at least
+LONG_ROW in-edges out to the whole grid in chunks of CHUNK_EDGES in-edges
+(``overflow_chunks``, the plan's push lists' fourth member, built with
+them by ``table_push_lists``), so that a hub's row is not one warp's
+serial walk; shorter rows are walked by their owner.
+
 ``ic_cascade_reference`` is the plain version, a Python loop of torch ops
 (``cascade_triples``, shared with the scatter form of ``ops/ic_scatter.py``;
 one host sync per step). ``ic_cascade`` runs it for tensors on the CPU and
@@ -110,6 +116,12 @@ PUSH_SORT_CHUNK = 1 << 24
 # Counters the self triples' runs spread their updates over (see
 # ``push_lists``).
 SPREAD = 1024
+# The dense pass's chunk list (``overflow_chunks``): the overflow rows of
+# at least LONG_ROW in-edges, cut into chunks of CHUNK_EDGES in-edges, each
+# chunk a warp's work item against one word. CHUNK_EDGES >= LONG_ROW, so a
+# plan of O overflow in-edges has at most O // LONG_ROW chunks.
+LONG_ROW = 16
+CHUNK_EDGES = 1024
 # Slots of the plain version's gather per chunk: bounds its working set
 # (about 100 bytes per attempted coin) on a card at the 1M-vertex plan.
 REF_CHUNK_WORDS = 1 << 20
@@ -263,7 +275,8 @@ def _check(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
         raise ValueError(f"ic_cascade: seed_words must be (n, W) with n = "
                          f"{n} table rows, got {tuple(seed_words.shape)}")
     if lists is not None:
-        check_lists("ic_cascade", lists, n, seed_words.device)
+        check_lists("ic_cascade", lists, n, seed_words.device,
+                    ov_src.shape[0])
     elif seed_words.is_cuda:
         raise ValueError("ic_cascade: a CUDA cascade needs the plan's push "
                          "lists (table_push_lists, built once per plan)")
@@ -435,12 +448,15 @@ push_lists.builds = 0
 tracing.counts_launches(push_lists, "builds")
 
 
-def table_push_lists(table, ov_src, ov_dst):
-    """``push_lists`` of the gather plan: table slot (v, j) holding u is the
-    pair (v, j) in u's row, overflow in-edge o of v (``ov_dst[o]`` = v) the
-    pair (v, cap + o); the self pads, and any self-loop, drop out. The
-    triples' indices stay below 2^31 (the table budget), so their
-    arithmetic is int32."""
+def table_push_lists(table, ov_src, ov_dst, ov_ptr, n_chunks=None):
+    """The gather plan's kernel lists: its ``push_lists`` (out_ptr,
+    out_recv, out_slot) and, fourth, the dense pass's chunk list of the
+    overflow rows with row starts ``ov_ptr`` (``overflow_chunks``, of
+    ``n_chunks`` chunks where the caller knows the count). Table slot (v,
+    j) holding u is the pair (v, j) in u's row, overflow in-edge o of v
+    (``ov_dst[o]`` = v) the pair (v, cap + o); the self pads, and any
+    self-loop, drop out. The triples' indices stay below 2^31 (the table
+    budget), so their arithmetic is int32."""
     n, cap = table.shape
     dev = table.device
     flat = table.reshape(-1)
@@ -469,18 +485,51 @@ def table_push_lists(table, ov_src, ov_dst):
             slot = torch.where(over, cap + o, slot)
         return recv, slot
 
-    return push_lists(NC + O, n, key_of, pair_of, dev)
+    return push_lists(NC + O, n, key_of, pair_of, dev) + (
+        overflow_chunks(ov_ptr, n_chunks),)
 
 
-def check_lists(name, lists, n, device):
+def row_chunks(length):
+    """Chunks of the overflow rows of ``length`` in-edges (numpy or torch,
+    elementwise): ceil(length / CHUNK_EDGES) from LONG_ROW in-edges on, 0
+    below."""
+    return (length >= LONG_ROW) * ((length + CHUNK_EDGES - 1) // CHUNK_EDGES)
+
+
+def overflow_chunks(ov_ptr, n_chunks=None):
+    """The dense pass's chunk list of the overflow rows with row starts
+    ``ov_ptr`` (n + 1,): (C, 2) int32 on its device, each chunk a row v and
+    its first in-edge o0, for every row of at least LONG_ROW in-edges cut
+    into chunks of CHUNK_EDGES in-edges (the last of a row partial), rows
+    and chunks in order; shorter rows have none. ``n_chunks``, the count C
+    where the caller knows it, spares the one host read of it (span
+    ``ic.chunks``)."""
+    with tracing.span("ic.chunks"):
+        dev = ov_ptr.device
+        ptr = ov_ptr.long()
+        per_row = row_chunks(ptr[1:] - ptr[:-1])
+        total = int(per_row.sum()) if n_chunks is None else int(n_chunks)
+        rows = torch.repeat_interleave(
+            torch.arange(per_row.shape[0], device=dev), per_row,
+            output_size=total)
+        first = torch.cumsum(per_row, 0) - per_row  # each row's first chunk
+        rank = torch.arange(total, device=dev) - first[rows]
+        return torch.stack([rows, ptr[rows] + rank * CHUNK_EDGES],
+                           dim=1).to(torch.int32)
+
+
+def check_lists(name, lists, n, device, n_over=None):
     """Raises unless ``lists`` is push lists over n vertices on ``device``:
-    (n + 1,), (P,) and (P,) int32, contiguous, P below 2^31."""
-    if not isinstance(lists, (tuple, list)) or len(lists) != 3:
-        raise ValueError(f"{name}: lists must be (out_ptr, out_recv, "
-                         f"out_slot)")
-    out_ptr, recv, slot = lists
-    for label, x in (("out_ptr", out_ptr), ("out_recv", recv),
-                     ("out_slot", slot)):
+    (n + 1,), (P,) and (P,) int32, contiguous, P below 2^31; with
+    ``n_over``, the gather plan's overflow in-edges O, also its chunk list
+    (``table_push_lists``' fourth member): (C, 2) int32, contiguous, C at
+    most O // LONG_ROW."""
+    names = ("out_ptr", "out_recv", "out_slot") + (
+        () if n_over is None else ("chunks",))
+    if not isinstance(lists, (tuple, list)) or len(lists) != len(names):
+        raise ValueError(f"{name}: lists must be ({', '.join(names)})")
+    out_ptr, recv, slot = lists[:3]
+    for label, x in zip(names, lists):
         if x.dtype != torch.int32:
             raise TypeError(f"{name}: {label} must be int32, got {x.dtype}")
         if x.device != torch.device(device):
@@ -493,6 +542,13 @@ def check_lists(name, lists, n, device):
         raise ValueError(f"{name}: lists must be ({n + 1},), (P,) and (P,) "
                          f"with P < 2^31, got {tuple(out_ptr.shape)}, "
                          f"{tuple(recv.shape)} and {tuple(slot.shape)}")
+    if n_over is not None:
+        chunks = lists[3]
+        if chunks.ndim != 2 or chunks.shape[1] != 2 or \
+                chunks.shape[0] > n_over // LONG_ROW:
+            raise ValueError(f"{name}: chunks must be (C, 2) with C <= "
+                             f"{n_over // LONG_ROW} (O // LONG_ROW), got "
+                             f"{tuple(chunks.shape)}")
 
 
 def check_mode(name, mode):
@@ -535,7 +591,7 @@ def table_dense_limit(mode, n, cap, O, W):
 def _kernel_fn():
     fn = _build.load("ic_cascade").graphem_ic_cascade_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [
         ctypes.c_ulonglong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p,
     ]
@@ -596,8 +652,9 @@ def ic_cascade_cuda(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
                     num_cols, runs=None, lists=None, *, mode="auto",
                     stats=None):
     """Launch the cascade kernel; same outputs as ic_cascade_reference.
-    ``lists`` are the plan's push lists (``build_cascade_plan``'s
-    'push')."""
+    ``lists`` are the plan's kernel lists (``build_cascade_plan``'s
+    'push': the push lists and the chunk list). ``stats`` also receives
+    'chunk_items', the (chunk, word) items of each dense step."""
     check_mode("ic_cascade", mode)
     if lists is None:
         raise ValueError("ic_cascade_cuda needs the plan's push lists")
@@ -607,24 +664,29 @@ def ic_cascade_cuda(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
     n, cap = table.shape
     W = seed_words.shape[1]
     O = ov_src.shape[0]
-    out_ptr, out_recv, out_slot = lists
+    out_ptr, out_recv, out_slot, chunks = lists
+    C = chunks.shape[0]
     G = group_lanes(W)
     active, hits, scratch, ctl = cascade_state(seed_words, num_cols)
-    nb = cascade_grid(dev, max(n * W, (n + out_recv.shape[0]) * G))
+    nb = cascade_grid(dev, max(n * W + 32 * C * W,
+                               (n + out_recv.shape[0]) * G))
     fn = _kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         ic_cascade.launches += 1
         rc = fn(table.data_ptr(), ov_ptr.data_ptr(), ov_src.data_ptr(),
-                out_ptr.data_ptr(), out_recv.data_ptr(), out_slot.data_ptr(),
-                seed_words.data_ptr(), active.data_ptr(), hits.data_ptr(),
-                scratch.data_ptr(), key.data_ptr(),
-                ctl.data_ptr(), n, cap, W, int(num_cols),
-                check_runs(num_cols, runs), G, int(thr), int(max_iters),
+                chunks.data_ptr(), out_ptr.data_ptr(), out_recv.data_ptr(),
+                out_slot.data_ptr(), seed_words.data_ptr(),
+                active.data_ptr(), hits.data_ptr(), scratch.data_ptr(),
+                key.data_ptr(), ctl.data_ptr(), n, cap, C, LONG_ROW,
+                CHUNK_EDGES, W, int(num_cols), check_runs(num_cols, runs), G,
+                int(thr), int(max_iters),
                 table_dense_limit(mode, n, cap, O, W), nb, stream)
     if rc != 0:
         raise RuntimeError(f"ic_cascade kernel launch failed: CUDA error "
                            f"{rc}")
+    if stats is not None:
+        stats["chunk_items"] = C * W
     return launch_result(active, ctl, stats)
 
 
@@ -636,12 +698,13 @@ def ic_cascade(table, ov_ptr, ov_src, seed_words, key, thr, max_iters,
     column its own).
 
     The kernel for CUDA tensors (one launch, no host sync), which needs the
-    plan's push ``lists`` (``build_cascade_plan``'s 'push'); the plain
-    version for CPU
-    tensors, which needs none. ``mode`` (private: "auto", "push" or
-    "dense") forces the kernel's steps; the result is the same. A dict
-    ``stats`` receives the kernel's 'dense_steps' (a device tensor), or
-    what the plain version counts.
+    plan's kernel ``lists``, the push lists and the chunk list
+    (``build_cascade_plan``'s 'push'); the plain version for CPU tensors,
+    which needs none.
+    ``mode`` (private: "auto", "push" or "dense") forces the kernel's
+    steps; the result is the same. A dict ``stats`` receives the kernel's
+    'dense_steps' (a device tensor) and 'chunk_items', or what the plain
+    version counts.
     """
     _check(table, ov_ptr, ov_src, seed_words, key, thr, max_iters, num_cols,
            runs, lists, mode)

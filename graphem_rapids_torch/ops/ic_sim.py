@@ -42,12 +42,14 @@ import torch
 from ..utils import tracing
 from .forces import _optimal_table_cap
 from .ic_cascade import (
+    LONG_ROW,
     PUSH_SORT_CHUNK,
     coin_threshold,
     column_mask_words,
     draw_key,
     frontier_work,
     ic_cascade,
+    row_chunks,
     table_push_lists,
 )
 from .ic_scatter import edge_push_lists, ic_scatter
@@ -131,7 +133,7 @@ def wants_push_lists(device):
     return torch.device(device).type == "cuda"
 
 
-def cascade_plan_arrays(edges, n, device=None):
+def cascade_plan_arrays(edges, n, device=None, stats=None):
     """The gather IC's plan as int32 tensors on ``device`` (None: the
     edges' own, the CPU for a numpy array), or None when the table would
     exceed TABLE_BUDGET_SLOTS: 'table' (n, cap) (row v = in-neighbours of
@@ -157,7 +159,10 @@ def cascade_plan_arrays(edges, n, device=None):
     sources, the table and the overflow). The counter ``ic.plan.card``
     counts the plans built on a CUDA device, ``ic.plan.over_budget`` the
     plans that stop past the budget; the upload adds to
-    ``ic.upload.bytes`` (``_dst_list``)."""
+    ``ic.upload.bytes`` (``_dst_list``). A dict ``stats`` receives
+    'chunks', the length of the dense pass's chunk list
+    (``table_push_lists``), counted from the degrees already on the
+    host."""
     with tracing.span("ic.plan"):
         with tracing.span("ic.plan.directed"):
             dst2 = _dst_list(edges, device)
@@ -170,8 +175,8 @@ def cascade_plan_arrays(edges, n, device=None):
                                         stable=True)
                 starts = torch.searchsorted(d_s, probe, out_int32=True)
                 deg_in += starts[1:] - starts[:-1]
-            cap = max(1, _optimal_table_cap(deg_in.cpu().numpy(), n)) \
-                if m else 1
+            deg = deg_in.cpu().numpy() if m else np.zeros(0, np.int32)
+            cap = max(1, _optimal_table_cap(deg, n)) if m else 1
         if n * cap > TABLE_BUDGET_SLOTS:
             tracing.count("ic.plan.over_budget")
             return None
@@ -199,6 +204,9 @@ def cascade_plan_arrays(edges, n, device=None):
             ov_ptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
             torch.cumsum((deg_in - cap).clamp_(min=0), 0, dtype=torch.int32,
                          out=ov_ptr[1:])
+        if stats is not None:
+            long = deg[deg >= cap + LONG_ROW].astype(np.int64) - cap
+            stats["chunks"] = int(row_chunks(long).sum())
         if dev.type == "cuda":
             tracing.count("ic.plan.card")
         return {"table": table, "ov_dst": ov_dst, "ov_src": ov_src,
@@ -217,15 +225,19 @@ def build_cascade_plan(edges, n, device):
     """Self-padded in-neighbour table + hub overflow for the gather IC, on
     ``device``: ``cascade_plan_arrays`` built there, or None beyond the
     table budget. Where the cascades need them (``wants_push_lists``), the
-    kernel's push lists under 'push' as (out_ptr, out_recv, out_slot),
-    built once here on the device (``table_push_lists``)."""
-    arrays = cascade_plan_arrays(edges, n, device)
+    kernel's lists under 'push' as (out_ptr, out_recv, out_slot, chunks),
+    the push lists and its dense pass's chunk list of the long overflow
+    rows, built once here on the device (``table_push_lists``, with the
+    chunks' count from the plan's host degrees: no host read)."""
+    counts = {}
+    arrays = cascade_plan_arrays(edges, n, device, counts)
     if arrays is None:
         return None
     plan = upload_plan(arrays, device)
     if wants_push_lists(device):
         plan["push"] = table_push_lists(plan["table"], plan["ov_src"],
-                                        plan["ov_dst"])
+                                        plan["ov_dst"], plan["ov_ptr"],
+                                        counts["chunks"])
     return plan
 
 
@@ -263,8 +275,10 @@ def _read_outcome(counts, stats):
     on a card ``stats['outcome']`` holds the kernel's steps, dense steps
     and counts in one view of its control words. The span ``ic.read``
     (which waits for the cascade); the counters ``ic.cascades``,
-    ``ic.steps`` and ``ic.dense_steps`` (none on the CPU, whose plain
-    version has no dense step)."""
+    ``ic.steps``, ``ic.dense_steps`` (none on the CPU, whose plain
+    version has no dense step) and ``ic.dense_chunks``, the (chunk, word)
+    items the dense steps handed out (the dense steps times the launch's
+    ``stats['chunk_items']``; none for the scatter form)."""
     with tracing.span("ic.read"):
         if "outcome" in stats:
             row = stats["outcome"].cpu().numpy()
@@ -275,6 +289,7 @@ def _read_outcome(counts, stats):
     tracing.count("ic.cascades")
     tracing.count("ic.steps", steps)
     tracing.count("ic.dense_steps", dense)
+    tracing.count("ic.dense_chunks", dense * stats.get("chunk_items", 0))
     return counts, steps
 
 

@@ -3,7 +3,7 @@
 checkouts in turns on one CUDA card.
 
     python3 scripts/torch_ic_times.py --repo OLD --repo NEW \\
-        --repo NEW --repo OLD [--sweep]
+        --repo NEW --repo OLD [--sweep] [--heavy-tail-only]
 
 Each ``--repo`` is a checkout holding ``graphem_rapids_torch``; each runs
 in a process of its own, in the order given (parent, change, change,
@@ -27,6 +27,19 @@ of its greedy phase (k=5, p=0.1, 32 runs), warmed up once, wall seconds
 of 2 calls each, and on a 20,000-vertex graph of the same kind (k=3, p=0.1,
 32 runs), warmed up once, 2 calls.
 
+The heavy-tail plan first (chip_smoke's ``skewed_graph``, the benchmark's
+``skewed_1m`` family: ring + 3M zipf(1.6) chords on 1M vertices, cap 7,
+about 2.28M overflow in-edges, its 16 largest hubs vertices 0-15): for
+three sets of 10 random seeds in 64 columns (W = 2) at p=0.1, the cascade
+kernel back to back in its default mode, in forced push and in forced
+dense (5 calls after one), each row with its steps, dense steps and the
+SHA-1 of its active words (to hold two checkouts equal); the dense row's
+``ms_per_dense_step`` is its ms over its steps (every step dense). Then
+``estimated_influence`` on it as on the graphs below. Each estimate row
+carries the program's counters ``ic.dense_steps`` and ``ic.dense_chunks``
+over its timed calls (where the checkout has them). ``--heavy-tail-only``
+stops there.
+
 Before those, the cascade kernels alone, back to back (``chip_smoke``'s
 ``back_to_back_ms``) at the shapes of chip_smoke's phases 22 and 23 (the
 100K and 1M plans, the 1M and 12M edge lists, 10 random seeds in 64
@@ -43,6 +56,7 @@ module's), and each variant's result is held against the default's
 """
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -52,9 +66,24 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def program_counters(names):
+    """The program's counters ``names`` (None where the checkout has no
+    tracing module)."""
+    try:
+        from graphem_rapids_torch.utils import tracing
+    except ImportError:
+        return None
+    got = tracing.snapshot()["counters"]
+    return {k: got.get(k, 0) for k in names}
+
+
+COUNTERS = ("ic.cascades", "ic.dense_steps", "ic.dense_chunks")
+
+
 def estimate_times(cs, grt, tag, label, adj, warm, reps):
     """Wall seconds of ``reps`` estimates after ``warm`` warm-ups, the peak
-    device memory of the first warm-up, and the profiler row."""
+    device memory of the first warm-up, the program's counters over the
+    timed calls, and the profiler row."""
     import numpy as np
     import torch
 
@@ -69,6 +98,7 @@ def estimate_times(cs, grt, tag, label, adj, warm, reps):
     for _ in range(warm):
         estimate()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    before = program_counters(COUNTERS)
     wall = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -76,15 +106,68 @@ def estimate_times(cs, grt, tag, label, adj, warm, reps):
         spread = estimate()
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
+    after = program_counters(COUNTERS)
+    counters = after and {k: after[k] - before[k] for k in after}
     print(json.dumps(dict(tag, phase="ic_estimate", graph=label,
-                          seconds=wall, spread=spread,
-                          peak_mem_gib=peak)), flush=True)
+                          seconds=wall, spread=spread, peak_mem_gib=peak,
+                          counters=counters)), flush=True)
     cs.profile_call("profile_ic", label, estimate, estimate,
                     min(wall) * 1e3, 1)
 
 
 # the DENSE_BETA values of the sweep
 BETAS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5)
+
+
+def heavy_tail_times(cs, tag, adj):
+    """The cascade kernel on the heavy-tail plan, per cascade, for three
+    sets of 10 random seeds (64 columns, p=0.1): back to back in the
+    default mode, forced push and forced dense, results held equal."""
+    import numpy as np
+    import torch
+
+    from graphem_rapids_torch.influence import _as_edges_and_n
+    from graphem_rapids_torch.ops import ic_cascade as icc
+    from graphem_rapids_torch.ops import ic_sim as tic
+
+    key = torch.tensor(cs.IC_KEY, dtype=torch.int64, device="cuda")
+    edges, n = _as_edges_and_n(adj)
+    plan = tic.build_cascade_plan(edges, n, "cuda")
+    del edges
+    lists = plan["push"]
+    chunks = lists[3] if len(lists) == 4 else None  # the chunk list, if any
+    head = (plan["table"], plan["ov_ptr"], plan["ov_src"])
+    for s in range(3):
+        seeds = np.random.default_rng(s).choice(n, 10, replace=False)
+        mask = torch.zeros((n, 64), dtype=torch.bool, device="cuda")
+        mask[torch.as_tensor(seeds, device="cuda")] = True
+        args = head + (icc.pack_columns(mask), key, icc.coin_threshold(0.1),
+                       200, 64, None, lists)
+        want = None
+        for mode in ("auto", "push", "dense"):
+            stats = {}
+            got = icc.ic_cascade(*args, mode=mode, stats=stats)
+            ms = cs.back_to_back_ms(
+                lambda m=mode: icc.ic_cascade(*args, mode=m), reps=5,
+                warmup=1)
+            want = got if want is None else want
+            steps, dense = int(got[2]), int(stats["dense_steps"])
+            row = dict(tag, phase="kernel_time", kernel="ic_cascade",
+                       graph="skewed_1m", seed_set=s, p=0.1, variant=mode,
+                       steps=steps, dense_steps=dense, back_to_back_ms=ms,
+                       cap=int(plan["table"].shape[1]),
+                       overflow=int(plan["ov_src"].shape[0]),
+                       chunks=None if chunks is None else int(chunks.shape[0]),
+                       spread=float(got[1].float().mean()),
+                       active_sha1=hashlib.sha1(
+                           got[0].cpu().numpy().tobytes()).hexdigest(),
+                       equal=all(torch.equal(g, w)
+                                 for g, w in zip(got, want)))
+            if mode == "dense":
+                row["ms_per_dense_step"] = ms / max(steps, 1)
+            print(json.dumps(row), flush=True)
+    del plan, head, lists, chunks
+    torch.cuda.empty_cache()
 
 
 def kernel_times(cs, tag, sweep):
@@ -167,7 +250,7 @@ def kernel_times(cs, tag, sweep):
         torch.cuda.empty_cache()
 
 
-def worker(repo, sweep=False):
+def worker(repo, sweep=False, heavy_tail_only=False):
     """Time one checkout; the port comes from ``repo``, the graphs and
     the profiler row from this script's chip_smoke.py."""
     sys.path.insert(0, os.path.abspath(repo))
@@ -187,6 +270,12 @@ def worker(repo, sweep=False):
                if (_build.CSRC_DIR / f"{name}.cu").exists()]
     if kernels:
         _build.build(kernels, force=True)
+    adj = cs.skewed_graph()
+    heavy_tail_times(cs, tag, adj)
+    estimate_times(cs, grt, tag, "skewed_1m", adj, 2, 5)
+    del adj
+    if heavy_tail_only:
+        return 0
     kernel_times(cs, tag, sweep)
     graphs = (("random_8_regular_100k", cs.regular_union_graph(100_000)),
               ("ring_chords_1m", cs.ring_chords_graph()))
@@ -232,9 +321,10 @@ def main(argv):
     ap.add_argument("--repo", action="append")
     ap.add_argument("--worker")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--heavy-tail-only", action="store_true")
     args = ap.parse_args(argv)
     if args.worker:
-        return worker(args.worker, args.sweep)
+        return worker(args.worker, args.sweep, args.heavy_tail_only)
     import torch
 
     if not torch.cuda.is_available():
@@ -249,7 +339,9 @@ def main(argv):
         env.pop("PYTHONPATH", None)
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--worker", repo]
-                             + ["--sweep"] * args.sweep, env=env,
+                             + ["--sweep"] * args.sweep
+                             + ["--heavy-tail-only"] * args.heavy_tail_only,
+                             env=env,
                              check=False)
         if res.returncode != 0:
             print(f"torch_ic_times: {repo} failed ({res.returncode})",

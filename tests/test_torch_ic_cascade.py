@@ -123,7 +123,7 @@ def _run(arrays, seed_mask, key, thr, max_iters, device="cpu", runs=None):
     words = icc.pack_columns(torch.as_tensor(seed_mask, device=device))
     k = torch.as_tensor(np.asarray(key, np.int64), device=device)
     lists = icc.table_push_lists(plan["table"], plan["ov_src"],
-                                 plan["ov_dst"])
+                                 plan["ov_dst"], plan["ov_ptr"])
     return icc.ic_cascade(plan["table"], plan["ov_ptr"], plan["ov_src"],
                           words, k, thr, max_iters, seed_mask.shape[1], runs,
                           lists)

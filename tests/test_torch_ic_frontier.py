@@ -122,7 +122,8 @@ def test_push_lists_equal_numpy(monkeypatch, name, chunk):
     if name == "hubs_isolated_loop":
         assert len(arrays["ov_src"]) > 0
     plan = tic.upload_plan(arrays, "cpu")
-    got = icc.table_push_lists(plan["table"], plan["ov_src"], plan["ov_dst"])
+    got = icc.table_push_lists(plan["table"], plan["ov_src"], plan["ov_dst"],
+                               plan["ov_ptr"])
     src, recv, slot = _np_table_triples(arrays)
     _assert_lists_equal(got, _np_push(src, recv, slot, n), n,
                         slot[src == recv].tolist())
@@ -155,7 +156,7 @@ def test_plan_carries_its_push_lists(monkeypatch):
     plan = tic.build_cascade_plan(edges, n, "cpu")
     assert icc.push_lists.builds == builds + 1
     want = icc.table_push_lists(plan["table"], plan["ov_src"],
-                                plan["ov_dst"])
+                                plan["ov_dst"], plan["ov_ptr"])
     for g, w in zip(plan["push"], want):
         assert torch.equal(g, w)
 
@@ -260,8 +261,9 @@ def _case(form, edges, n, mask, p, runs, limit, max_iters=200, seed=0):
     if form == "gather":
         plan = tic.build_cascade_plan(edges, n, "cpu")
         args = (plan["table"], plan["ov_ptr"], plan["ov_src"])
+        # the push lists; the model's dense pass walks the triples
         lists = icc.table_push_lists(plan["table"], plan["ov_src"],
-                                     plan["ov_dst"])
+                                     plan["ov_dst"], plan["ov_ptr"])[:3]
         u, v, slot = icc.table_triples(*args)
         want = icc.ic_cascade_reference(*args, words, key, thr, max_iters, B,
                                         runs, stats=stats)

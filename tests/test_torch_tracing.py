@@ -334,7 +334,7 @@ def _plain(edges, n, mask, p, num_sims, max_iters, key, scatter,
                                        plan["ov_src"], words, k, thr,
                                        max_iters, num_sims, stats=stats)
         lists = icc.table_push_lists(plan["table"], plan["ov_src"],
-                                     plan["ov_dst"])
+                                     plan["ov_dst"], plan["ov_ptr"])
     return out, stats, lists
 
 
