@@ -2546,19 +2546,14 @@ def step_knn_inputs(emb, sampled):
     its current positions (row-order tables)."""
     from graphem_rapids_torch.ops import forces
 
-    pos, ops, nb = emb._positions, emb._ops, emb._nb
+    pos, ops = emb._positions, emb._ops
     if not emb._fused_refs_active:
         e = ops["edges"]
         mid = (pos[e[:, 0]] + pos[e[:, 1]]) / 2.0
         return mid[sampled.long()], mid
-    if "buckets" in nb:
-        refs = forces.midpoint_refs_binned(
-            pos, [pos[t] for t in ops["tables"]], nb["buckets"],
-            ops["ref_valid"], ops["overflow_lt"])
-    else:
-        refs = forces.midpoint_refs_from_gathered(
-            pos, pos[ops["table"]], nb["ref_cap"], ops["ref_valid"],
-            ops["overflow_lt"])
+    refs = forces.midpoint_refs_binned(
+        pos, [pos[t] for t in ops["tables"]], ops["buckets"],
+        ops["ref_valid"], ops["overflow_lt"])
     return refs[ops["edge_ref"][sampled.long()]], refs
 
 

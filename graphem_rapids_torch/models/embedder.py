@@ -38,11 +38,9 @@ from ..ops.forces import (
     build_neighbor_table_binned,
     intersection_forces,
     midpoint_refs_binned,
-    midpoint_refs_from_gathered,
     spring_forces_binned,
-    spring_forces_from_gathered,
     spring_refs_binned_slotwise,
-    spring_refs_slotwise,
+    table_buckets,
 )
 from ..ops.knn import EXACT_MAX_REFS, knn, oneshot_budget_bytes
 from ..ops.laplacian import spectral_init
@@ -396,14 +394,14 @@ class GraphEmbedderTorch:
             "nb_overflow": None,
             "ov_plan": None,
         }
-        # slot order keeps each table transposed, (cap, rows)
+        # slot order keeps each table transposed, (cap, rows); a flat
+        # table is one bucket and has no renumbering
         key = "table_t" if nb["ref_order"] == "slot" else "table"
-        if "buckets" in nb:
-            ops["tables"] = [put(g[key]) for g in nb["buckets"]]
-            ops["edge_order"] = put(nb["edge_user"])
-        else:
-            ops["table"] = put(nb[key])
-            ops["edge_order"] = None
+        ops["buckets"] = table_buckets(nb)
+        ops["tables"] = [put(g[key]) for g in ops["buckets"]]
+        ops["edge_order"] = (
+            put(nb["edge_user"]) if "edge_user" in nb else None
+        )
         plan = nb.get("overflow_plan")
         if plan is not None:
             ops["ov_plan"] = {
@@ -425,7 +423,7 @@ class GraphEmbedderTorch:
         (engine numbering); returns the new positions."""
         ops = self._ops
         nb = self._nb
-        binned = "buckets" in nb
+        buckets = ops["buckets"]
         k_attr, L_min = self.k_attr, self.L_min
         k_eff = self._k_eff
         fused = self._fused_refs_active and k_eff > 1
@@ -436,40 +434,25 @@ class GraphEmbedderTorch:
             if nb["ref_order"] == "slot":
                 # per-slot (rows, d) gathers shared by the spring sum and
                 # the slot-major ref set
-                slotwise = (spring_refs_binned_slotwise if binned
-                            else spring_refs_slotwise)
-                spring, refs = slotwise(
-                    positions, ops["tables"] if binned else ops["table"],
-                    nb["buckets"] if binned else nb["ref_cap"], k_attr,
-                    L_min, ref_valid=ops["ref_valid"],
+                spring, refs = spring_refs_binned_slotwise(
+                    positions, ops["tables"], buckets, k_attr, L_min,
+                    ref_valid=ops["ref_valid"],
                     overflow_lt=ops["overflow_lt"],
                     overflow_edges=ops["nb_overflow"],
                     overflow_plan=ops["ov_plan"], want_refs=fused,
                 )
-            elif binned:
+            else:
                 pn_list = [positions[t] for t in ops["tables"]]
                 spring = spring_forces_binned(
-                    positions, pn_list, nb["buckets"], k_attr, L_min,
+                    positions, pn_list, buckets, k_attr, L_min,
                     ops["nb_overflow"], ops["ov_plan"],
-                )
-            else:
-                pn = positions[ops["table"]]
-                spring = spring_forces_from_gathered(
-                    positions, pn, k_attr, L_min, ops["nb_overflow"],
-                    ops["ov_plan"],
                 )
         if fused and nb["ref_order"] != "slot":
             with tracing.span("step.refs"):
-                if binned:
-                    refs = midpoint_refs_binned(
-                        positions, pn_list, nb["buckets"], ops["ref_valid"],
-                        ops["overflow_lt"],
-                    )
-                else:
-                    refs = midpoint_refs_from_gathered(
-                        positions, pn, nb["ref_cap"], ops["ref_valid"],
-                        ops["overflow_lt"],
-                    )
+                refs = midpoint_refs_binned(
+                    positions, pn_list, buckets, ops["ref_valid"],
+                    ops["overflow_lt"],
+                )
         if k_eff > 1:
             kw = dict(strategy=self._strategy, chunk_size=self.batch_size,
                       compute_dtype=self.knn_compute_dtype,

@@ -10,6 +10,8 @@ degree-sorted renumbering cut its padding on skewed graphs, and the surplus
 pairs of hub vertices go to a block-fold overflow plan. The same tables
 double as the kNN reference factory: slot (v, s) of the gathered neighbor
 positions yields edge midpoint (pos[v] + pos[table[v, s]]) / 2 directly.
+The step ops walk buckets only: a flat table is the one-bucket case
+(``table_buckets``).
 Every sort below is stable, so the tables are identical to the JAX ones.
 ``native=False`` runs the helpers' plain numpy versions instead; both give
 the same arrays, dtypes included.
@@ -453,6 +455,20 @@ def build_neighbor_table_binned(edges_user, n, overhead_rows=4096,
     }
 
 
+def table_buckets(nb):
+    """The buckets the step ops walk: a binned table's own, or a flat
+    table of ``build_neighbor_table`` as the one bucket over all n rows,
+    with its 'table' (or 'table_t' in slot order) and ref slots 0 ..
+    n*ref_cap. Bucket dicts as build_neighbor_table_binned's."""
+    if "buckets" in nb:
+        return nb["buckets"]
+    key = "table_t" if nb["ref_order"] == "slot" else "table"
+    table = nb[key]
+    cap = table.shape[0] if key == "table_t" else table.shape[1]
+    return [{"start": 0, "count": int(nb["n"]), "cap": int(cap),
+             "ref_cap": int(nb["ref_cap"]), "ref_offset": 0, key: table}]
+
+
 def build_overflow_plan(overflow):
     """Block-fold plan for the neighbor-table overflow scatter.
 
@@ -542,12 +558,10 @@ def _apply_table_overflow(forces, positions, overflow_edges, overflow_plan,
     return forces
 
 
-def spring_forces_from_gathered(positions, pn, k_attr, L_min,
-                                overflow_edges=None, overflow_plan=None):
-    """Spring forces from the gathered neighbor block ``pn = pos[table]``."""
-    forces = _spring(pn - positions[:, None, :], k_attr, L_min).sum(dim=1)
-    return _apply_table_overflow(forces, positions, overflow_edges,
-                                 overflow_plan, k_attr, L_min)
+def join_blocks(blocks):
+    """The row blocks joined in order; a lone block is returned as is,
+    without a copy (a flat table's one bucket)."""
+    return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=0)
 
 
 def spring_forces_nbtable(positions, nb, k_attr, L_min,
@@ -556,8 +570,8 @@ def spring_forces_nbtable(positions, nb, k_attr, L_min,
     ``build_neighbor_table`` (a gather, then a row sum): for vertex v the
     sum over u in N(v) of -k_attr (|u - v| - L_min) (u - v)/|u - v|, each
     undirected edge seen once from each side. The overflow pairs, as
-    spring_forces_from_gathered takes them; arrays on the host are moved to
-    the positions' device."""
+    spring_forces_binned takes them; arrays on the host are moved to the
+    positions' device."""
     def put(a):
         return None if a is None else torch.as_tensor(
             a, device=positions.device)
@@ -565,14 +579,17 @@ def spring_forces_nbtable(positions, nb, k_attr, L_min,
     if overflow_plan is not None:
         overflow_plan = {k: v if k == "block" else put(v)
                          for k, v in overflow_plan.items()}
-    pn = positions[put(nb["table"]).long()]
-    return spring_forces_from_gathered(positions, pn, k_attr, L_min,
-                                       put(overflow_edges), overflow_plan)
+    buckets = table_buckets(nb)
+    pn_list = [positions[put(g["table"]).long()] for g in buckets]
+    return spring_forces_binned(positions, pn_list, buckets, k_attr, L_min,
+                                put(overflow_edges), overflow_plan)
 
 
 def spring_forces_binned(positions, pn_list, buckets, k_attr, L_min,
                          overflow_edges=None, overflow_plan=None):
-    """Spring forces over the degree-binned tables.
+    """Spring forces over the tables' buckets (table_buckets): JAX's
+    spring_forces_binned, and on a flat table's one bucket its flat
+    gather form.
 
     ``pn_list[g] = positions[buckets[g]['table']]``; internal vertex ids
     are bucket-contiguous, so the per-bucket blocks concatenate.
@@ -584,9 +601,8 @@ def spring_forces_binned(positions, pn_list, buckets, k_attr, L_min,
             blocks.append(torch.zeros_like(pv))
             continue
         blocks.append(_spring(pn - pv[:, None, :], k_attr, L_min).sum(dim=1))
-    forces = torch.cat(blocks, dim=0)
-    return _apply_table_overflow(forces, positions, overflow_edges,
-                                 overflow_plan, k_attr, L_min)
+    return _apply_table_overflow(join_blocks(blocks), positions,
+                                 overflow_edges, overflow_plan, k_attr, L_min)
 
 
 def masked_slot_midpoints(pv, pn, rc, valid):
@@ -607,23 +623,11 @@ def overflow_midpoints(positions, overflow_lt, active=True):
     return mid
 
 
-def midpoint_refs_from_gathered(positions, pn, ref_cap, ref_valid,
-                                overflow_lt=None):
-    """Edge-midpoint kNN refs built from the flat spring gather.
-
-    Returns (n*ref_cap + O2, d), aligned with the table's 'ref_edge'.
-    """
-    cap = min(ref_cap, pn.shape[1])
-    refs = masked_slot_midpoints(positions, pn, cap, ref_valid)
-    if overflow_lt is not None and overflow_lt.shape[0] > 0:
-        refs = torch.cat([refs, overflow_midpoints(positions, overflow_lt)])
-    return refs
-
-
 def midpoint_refs_binned(positions, pn_list, buckets, ref_valid,
                          overflow_lt=None):
-    """Edge-midpoint kNN refs from the binned spring gathers, bucket-major,
-    then the overflow midpoints."""
+    """Edge-midpoint kNN refs from the buckets' spring gathers,
+    bucket-major, then the overflow midpoints: JAX's midpoint_refs_binned,
+    and on a flat table's one bucket its flat gather form."""
     parts = []
     off = 0
     for g, pn in zip(buckets, pn_list):
@@ -640,7 +644,7 @@ def midpoint_refs_binned(positions, pn_list, buckets, ref_valid,
 def _concat_refs(parts, positions, overflow_lt):
     """The ref blocks in order, then the overflow midpoints."""
     if parts:
-        refs = torch.cat(parts, dim=0)
+        refs = join_blocks(parts)
     else:
         refs = positions.new_zeros((0, positions.shape[1]))
     if overflow_lt is not None and overflow_lt.shape[0] > 0:
@@ -648,49 +652,21 @@ def _concat_refs(parts, positions, overflow_lt):
     return refs
 
 
-def spring_refs_slotwise(positions, table_t, ref_cap, k_attr, L_min,
-                         ref_valid=None, overflow_lt=None,
-                         overflow_edges=None, overflow_plan=None,
-                         want_refs=True):
-    """Spring forces and midpoint refs from the slot-major flat table.
-
-    Step op of ``build_neighbor_table(..., ref_order='slot')``: the (D, n)
-    ``table_t`` is walked one slot at a time, an (n, d) gather each, which
-    feeds the spring sum and, over the first ``ref_cap`` slots, the ref
-    block of slot s (flat refs s*n + v), then the overflow midpoints.
-    Returns (forces, refs); refs is None unless ``want_refs``. The same
-    per-slot arithmetic as spring_forces_from_gathered and
-    midpoint_refs_from_gathered, in slot-major enumeration.
-    """
-    n = positions.shape[0]
-    rc = min(ref_cap, table_t.shape[0])
-    acc = torch.zeros_like(positions)
-    parts = []
-    pad = torch.full((), REF_PAD_VALUE, dtype=positions.dtype,
-                     device=positions.device)
-    for s in range(table_t.shape[0]):
-        pn_s = positions[table_t[s]]
-        acc = acc + _spring(pn_s - positions, k_attr, L_min)
-        if want_refs and s < rc:
-            v = ref_valid[s * n:(s + 1) * n]
-            parts.append(torch.where(v[:, None], (positions + pn_s) * 0.5,
-                                     pad))
-    forces = _apply_table_overflow(acc, positions, overflow_edges,
-                                   overflow_plan, k_attr, L_min)
-    refs = _concat_refs(parts, positions, overflow_lt) if want_refs else None
-    return forces, refs
-
-
 def spring_refs_binned_slotwise(positions, tables_t, buckets, k_attr, L_min,
                                 ref_valid=None, overflow_lt=None,
                                 overflow_edges=None, overflow_plan=None,
                                 want_refs=True):
-    """Spring forces and midpoint refs from slot-major binned tables.
+    """Spring forces and midpoint refs from slot-major tables.
 
-    Step op of ``build_neighbor_table_binned(..., ref_order='slot')``:
-    ``tables_t[g]`` is bucket g's (cap, count) table, walked one slot at a
-    time; the refs of bucket g's slot s land at ref_offset_g + s*count_g +
-    p. Returns (forces, refs) as spring_refs_slotwise does.
+    Step op of the ``ref_order='slot'`` tables, JAX's
+    spring_refs_binned_slotwise, and on a flat table's one bucket its flat
+    slotwise form: ``tables_t[g]`` is bucket g's (cap, count) table
+    (table_buckets), walked one slot at a time, a (count, d) gather each,
+    which feeds the spring sum and, over the first ref_cap_g slots, the
+    refs of bucket g's slot s at ref_offset_g + s*count_g + p; then the
+    overflow midpoints. Returns (forces, refs); refs is None unless
+    ``want_refs``. The same per-slot arithmetic as spring_forces_binned
+    and midpoint_refs_binned, in slot-major enumeration.
     """
     blocks = []
     parts = []
@@ -710,7 +686,7 @@ def spring_refs_binned_slotwise(positions, tables_t, buckets, k_attr, L_min,
                 parts.append(torch.where(v[:, None], (pv + pn_s) * 0.5, pad))
         blocks.append(acc)
         off += cnt * rc
-    forces = _apply_table_overflow(torch.cat(blocks, dim=0), positions,
+    forces = _apply_table_overflow(join_blocks(blocks), positions,
                                    overflow_edges, overflow_plan, k_attr,
                                    L_min)
     refs = _concat_refs(parts, positions, overflow_lt) if want_refs else None

@@ -120,9 +120,7 @@ class ShardedGraphEmbedder(GraphEmbedderTorch):
         )
         self._step_ops = step_ops
         self._sharded_raw = raw_step
-        self._fused_refs_active = (
-            "ref_valid_pad" in step_ops or "bref_valid" in step_ops
-        )
+        self._fused_refs_active = "bref_valid" in step_ops
         # every rank starts from rank 0's positions
         self.mesh.broadcast(self._positions, src=0)
 

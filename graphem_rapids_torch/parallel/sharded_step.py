@@ -4,9 +4,9 @@ Counterpart of ``graphem_rapids_tpu/parallel/sharded_step.py``, both ref
 orders. Every rank holds the replicated positions and runs this step; the
 work that scales with E is cut by rank:
 
-- spring forces: each rank gathers the neighbor-table rows of its n/ndev
-  vertices (every bucket's row shard with the degree-binned tables), then a
-  tiled all_gather assembles the (n, d) forces; without a table, a local
+- spring forces: each rank gathers every table bucket's row shard, 1/ndev
+  of the bucket's vertices (a flat table is one bucket), then a tiled
+  all_gather assembles each bucket's forces; without a table, a local
   segment sum over the rank's edge shard and an all_reduce. Slot-major
   tables (``ref_order='slot'``) ride transposed and column-sharded: the
   rank gathers its vertices one table slot at a time, a (rows, d) gather
@@ -64,8 +64,10 @@ from ..ops.forces import (
     _spring,
     apply_overflow_plan,
     intersection_forces,
+    join_blocks,
     masked_slot_midpoints,
     overflow_midpoints,
+    table_buckets,
 )
 from ..ops.knn import knn_chunked, squared_distances
 from ..ops.sampling import sample_indices
@@ -193,17 +195,17 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
     step_ops = {}
     if n_devices > 1:
         step_ops["replica_gap"] = torch.zeros((), device=dev)
-    binned = nb is not None and "buckets" in nb
     # slot-major tables ride transposed, (cap, rows), and column-sharded
     slot_order = nb is not None and nb.get("ref_order") == "slot"
-    ov_plan = None
     SL = O2 = 0
-    if binned:
-        # ---- degree-binned tables, bucket-row-sharded ------------------ #
-        # Every bucket's table is row-padded to a rank-divisible count and
-        # each rank owns 1/ndev of every bucket's rows.
+    if nb is not None:
+        # ---- the tables' buckets, bucket-row-sharded ------------------- #
+        # Every bucket's table (a flat table is one bucket) is row-padded
+        # to a rank-divisible count and each rank owns 1/ndev of every
+        # bucket's rows; pad rows gather the bucket's first vertex.
+        buckets = table_buckets(nb)
         geoms = []
-        for b in nb["buckets"]:
+        for b in buckets:
             cnt, cap = int(b["count"]), int(b["cap"])
             rc = min(int(b["ref_cap"]), cap)
             loc = (cnt + n_devices - 1) // n_devices
@@ -212,7 +214,7 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
                 "rc": rc, "loc": loc, "pad": loc * n_devices,
             })
         btables, bowns = [], []
-        for gm, b in zip(geoms, nb["buckets"]):
+        for gm, b in zip(geoms, buckets):
             if slot_order:
                 t = np.asarray(b["table_t"])  # (cap, count): pad columns
                 if gm["pad"] != gm["count"]:
@@ -251,7 +253,8 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
             }
         elif len(nb["overflow"]):
             step_ops["nb_overflow"] = put(nb["overflow"])
-        step_ops["edge_order"] = put(nb["edge_user"])
+        if "edge_user" in nb:  # a renumbered table's internal -> user ids
+            step_ops["edge_order"] = put(nb["edge_user"])
 
         O2 = int(len(nb["overflow_lt"]))
         n_ref_slots = int(nb["ref_edge"].shape[0])
@@ -309,78 +312,6 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
                 ))
                 if O2:
                     step_ops["overflow_lt"] = put(nb["overflow_lt"])
-    elif nb is not None:
-        n_loc = (n + n_devices - 1) // n_devices
-        n_pad = n_loc * n_devices
-        # pad rows (vertices >= n; columns of a slot-major table) gather
-        # row 0; the [:n] slice after the all_gather drops their forces
-        if slot_order:
-            table_t = np.asarray(nb["table_t"])  # (D, n)
-            D_tbl = table_t.shape[0]
-            if n_pad != n:
-                table_t = np.concatenate(
-                    [table_t, np.zeros((D_tbl, n_pad - n), np.int32)], axis=1)
-            step_ops["table_t_pad"] = put(table_t)
-        else:
-            table = np.asarray(nb["table"])
-            D_tbl = table.shape[1]
-            if n_pad != n:
-                table = np.concatenate([table, np.zeros((n_pad - n, D_tbl),
-                                                        np.int32)])
-            step_ops["table_pad"] = put(table)
-        step_ops["own_pad"] = put(np.concatenate(
-            [np.arange(n, dtype=np.int32), np.zeros(n_pad - n, np.int32)]
-        )) if (n_devices > 1 and n_pad != n) else None
-        ov_plan = nb.get("overflow_plan")
-        if ov_plan is not None:
-            step_ops["ov_plan"] = {
-                "pairs": put(ov_plan["pairs"]),
-                "block_hub": put(ov_plan["block_hub"]),
-                "hub_ids": put(ov_plan["hub_ids"]),
-                "block": int(ov_plan["block"]),
-            }
-        elif len(nb["overflow"]):
-            step_ops["nb_overflow"] = put(nb["overflow"])
-
-        ref_cap = min(int(nb["ref_cap"]), D_tbl)
-        O2 = int(len(nb["overflow_lt"]))
-        n_ref_slots = int(nb["ref_edge"].shape[0])
-        if fused_refs is None:
-            fused_refs = on_cuda and E > 0 and n_ref_slots <= 4 * E
-        if fused_refs:
-            SL = n_loc * ref_cap  # per-rank slot-ref count
-            if slot_order:
-                # slot-major refs s * n + v: (ref_cap, n), pad columns; the
-                # global padded slot is s * n_pad + v
-                rv = np.asarray(nb["ref_valid"][:n * ref_cap]).reshape(
-                    ref_cap, n)
-                re_slots = np.asarray(nb["ref_edge"][:n * ref_cap]).reshape(
-                    ref_cap, n)
-                if n_pad != n:
-                    rv = np.concatenate(
-                        [rv, np.zeros((ref_cap, n_pad - n), bool)], axis=1)
-                    re_slots = np.concatenate(
-                        [re_slots, np.zeros((ref_cap, n_pad - n), np.int32)],
-                        axis=1)
-            else:
-                rv = np.asarray(nb["ref_valid"]).reshape(n, ref_cap)
-                re_slots = np.asarray(nb["ref_edge"][:n * ref_cap]).reshape(
-                    n, ref_cap
-                )
-                if n_pad != n:
-                    rv = np.concatenate([rv, np.zeros((n_pad - n, ref_cap),
-                                                      bool)])
-                    re_slots = np.concatenate(
-                        [re_slots, np.zeros((n_pad - n, ref_cap), np.int32)]
-                    )
-            step_ops["ref_valid_pad"] = torch.as_tensor(rv, device=dev)
-            # vertex-pad slots map to edge 0 (they sit at REF_PAD distance);
-            # the overflow refs live at [n_pad * ref_cap, +O2)
-            step_ops["ref_edge_pad"] = put(np.concatenate(
-                [re_slots.reshape(-1), np.asarray(nb["ref_edge"][n * ref_cap:])]
-            ))
-            if O2:
-                step_ops["overflow_lt"] = put(nb["overflow_lt"])
     else:
         fused_refs = False
     fused_refs = bool(fused_refs)
@@ -404,15 +335,8 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
         # where a neighbour has no peer access (never a silent NCCL path)
         check_ring_peers(mesh)
 
-    def own_rows(positions, ops, g=None):
-        """This rank's own vertex rows: of bucket ``g``, or of the flat
-        table."""
-        if g is None:
-            if n_devices == 1:
-                return positions
-            if ops["own_pad"] is None:
-                return positions[rank * n_loc:(rank + 1) * n_loc]
-            return positions[rows(ops["own_pad"], n_loc)]
+    def own_rows(positions, ops, g):
+        """This rank's own vertex rows of bucket ``g``."""
         gm = geoms[g]
         if n_devices == 1:
             return positions[gm["start"]:gm["start"] + gm["count"]]
@@ -437,10 +361,10 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
         return acc
 
     def spring_pass(positions, ops, p1, p2, valid_loc, edges_loc):
-        """(spring (n, d), per-bucket (pv, pn), the flat (pv, pn), or with
-        slot-major tables the fused refs' midpoint blocks)."""
+        """(spring (n, d), per-bucket (pv, pn), or with slot-major tables
+        the fused refs' midpoint blocks)."""
         d = positions.shape[1]
-        if binned and slot_order:
+        if slot_order:
             blocks, mids = [], []
             bidx = 0
             for g, gm in enumerate(geoms):
@@ -455,17 +379,9 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
                                 cols(ops["btables"][g], gm["loc"]), rvg,
                                 gm["rc"], mids)
                 blocks.append(mesh.all_gather_tiled(acc)[:gm["count"]])
-            spring = torch.cat(blocks, dim=0)
+            spring = join_blocks(blocks)
             gathered = mids
-        elif slot_order and nb is not None:
-            mids = []
-            rv_loc = cols(ops["ref_valid_pad"], n_loc) if fused_refs else None
-            acc = slot_pass(positions, own_rows(positions, ops),
-                            cols(ops["table_t_pad"], n_loc), rv_loc, ref_cap,
-                            mids)
-            spring = mesh.all_gather_tiled(acc)[:n]
-            gathered = mids
-        elif binned:
+        elif nb is not None:
             blocks, gathered = [], []
             for g, gm in enumerate(geoms):
                 png = positions[rows(ops["btables"][g], gm["loc"])]
@@ -477,13 +393,7 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
                     continue
                 fvg = _spring(png - pvg[:, None, :], k_attr, L_min).sum(dim=1)
                 blocks.append(mesh.all_gather_tiled(fvg)[:gm["count"]])
-            spring = torch.cat(blocks, dim=0)
-        elif nb is not None:
-            pn = positions[rows(ops["table_pad"], n_loc)]  # (n_loc, D, d)
-            pv = own_rows(positions, ops)
-            spring_loc = _spring(pn - pv[:, None, :], k_attr, L_min).sum(dim=1)
-            spring = mesh.all_gather_tiled(spring_loc)[:n]
-            gathered = (pv, pn)
+            spring = join_blocks(blocks)
         else:
             # edge-sharded segment sum + all_reduce
             f = _spring(p2 - p1, k_attr, L_min) * valid_loc[:, None]
@@ -507,8 +417,8 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
     def ref_tile(positions, ops, gathered, p1, p2, valid_loc):
         """This rank's kNN ref tile (R_loc, d)."""
         if fused_refs and slot_order:
-            mid_loc = torch.cat(gathered, dim=0)  # the slot pass's blocks
-        elif fused_refs and binned:
+            mid_loc = join_blocks(gathered)  # the slot pass's blocks
+        elif fused_refs:
             mids = []
             for g, gm in enumerate(geoms):
                 if gm["rc"] == 0:
@@ -516,11 +426,7 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
                 rvg = rows(ops["bref_valid"][len(mids)], gm["loc"])
                 pvg, png = gathered[g]
                 mids.append(masked_slot_midpoints(pvg, png, gm["rc"], rvg))
-            mid_loc = torch.cat(mids, dim=0)
-        elif fused_refs:
-            pv, pn = gathered
-            rv_loc = rows(ops["ref_valid_pad"], n_loc)
-            mid_loc = masked_slot_midpoints(pv, pn, ref_cap, rv_loc)
+            mid_loc = join_blocks(mids)
         else:
             mid_loc = (p1 + p2) / 2.0
             return torch.where(valid_loc[:, None] > 0, mid_loc,
@@ -537,7 +443,7 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
     def to_global(idx_t, owner):
         """Tile-local ref positions of rank ``owner``'s tile -> the global
         ref space (``owner`` an int or a tensor like ``idx_t``)."""
-        if fused_refs and binned:
+        if fused_refs:
             idx_glob = idx_t - SL + G_total  # the overflow block
             for seg_off_g, seg_len_g, roff_g, loc_g, pad_g in seg_meta:
                 in_seg = (idx_t >= seg_off_g) & (idx_t < seg_off_g + seg_len_g)
@@ -549,15 +455,6 @@ def build_sharded_step(mesh, n, E, *, n_components, k_attr, L_min, k_inter,
                     cand = idx_t - seg_off_g + roff_g + owner * seg_len_g
                 idx_glob = torch.where(in_seg, cand, idx_glob)
             return idx_glob
-        if fused_refs and slot_order:
-            return torch.where(
-                idx_t < SL,
-                torch.div(idx_t, n_loc, rounding_mode="floor") * n_pad
-                + owner * n_loc + idx_t % n_loc,
-                idx_t - SL + n_pad * ref_cap)
-        if fused_refs:
-            return torch.where(idx_t < SL, idx_t + owner * SL,
-                               idx_t - SL + n_pad * ref_cap)
         return idx_t + owner * E_loc
 
     def body(positions, edges_full, valid_full, sampled, ops):

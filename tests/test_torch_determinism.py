@@ -473,8 +473,8 @@ def test_table_overflow_bit_equal_to_index_add_form(form):
     base = tf._spring(pn - pos_t[:, None, :], K_ATTR, L_MIN).sum(dim=1)
     if form == "block_plan":
         plan = _plan_t(nb["overflow_plan"])
-        got = tf.spring_forces_from_gathered(pos_t, pn, K_ATTR, L_MIN,
-                                             overflow_plan=plan)
+        got = tf.spring_forces_binned(pos_t, [pn], tf.table_buckets(nb),
+                                      K_ATTR, L_MIN, overflow_plan=plan)
         fo = tf._overflow_spring(pos_t, plan["pairs"], K_ATTR, L_MIN)
         blk = fo.reshape(-1, plan["block"], 3).sum(dim=1)
         hub = torch.zeros(len(plan["hub_ids"]), 3).index_add_(
@@ -482,8 +482,8 @@ def test_table_overflow_bit_equal_to_index_add_form(form):
         want = base.index_add(0, plan["hub_ids"], hub)
     else:
         ov = torch.from_numpy(nb["overflow"]).long()
-        got = tf.spring_forces_from_gathered(pos_t, pn, K_ATTR, L_MIN,
-                                             overflow_edges=ov)
+        got = tf.spring_forces_binned(pos_t, [pn], tf.table_buckets(nb),
+                                      K_ATTR, L_MIN, overflow_edges=ov)
         fo = tf._overflow_spring(pos_t, ov, K_ATTR, L_MIN)
         want = base.index_add(0, ov[:, 0], fo)
     assert torch.equal(got, want)

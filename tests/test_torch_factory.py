@@ -246,7 +246,10 @@ def test_factory_sharded_raises():
     adj = _ring(100)
     emb = grt.create_graphem(adj, backend="sharded", device="cpu",
                              ref_order="slot", verbose=False, init="random")
-    assert emb.ref_order == "slot" and "table_t_pad" in emb._step_ops
+    # the flat slot-major table rides as the one bucket, (cap, n)
+    (table_t,) = emb._step_ops["btables"]
+    assert emb.ref_order == "slot" and torch.equal(
+        table_t, torch.as_tensor(emb._nb["table_t"]).long())
     with pytest.raises(ValueError, match="knn_comm"):
         grt.create_graphem(adj, backend="sharded", device="cpu",
                            knn_comm="nccl")

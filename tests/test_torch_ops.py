@@ -145,9 +145,10 @@ def test_spring_flat_table(cap, use_plan):
     if cap is not None:
         assert len(nb["overflow"]) > 0
     pt = _t(pos)
-    got = tf.spring_forces_from_gathered(
-        pt, pt[_t(nb["table"]).long()], K_ATTR, L_MIN,
-        None if ov is None else _t(ov).long(), _plan_t(plan),
+    buckets = tf.table_buckets(nb)  # the flat table's one bucket
+    got = tf.spring_forces_binned(
+        pt, [pt[_t(g["table"]).long()] for g in buckets], buckets, K_ATTR,
+        L_MIN, None if ov is None else _t(ov).long(), _plan_t(plan),
     ).numpy()
     pj = jnp.asarray(pos)
     ref = np.asarray(jf.spring_forces_from_gathered(
@@ -200,8 +201,9 @@ def test_midpoint_refs_bitwise(binned):
         ref = jf.midpoint_refs_binned(
             pj, pn_j, {**nb, "ref_valid": jnp.asarray(nb["ref_valid"])}, ov_j)
     else:
-        got = tf.midpoint_refs_from_gathered(
-            pt, pt[_t(nb["table"]).long()], nb["ref_cap"],
+        buckets = tf.table_buckets(nb)  # the flat table's one bucket
+        got = tf.midpoint_refs_binned(
+            pt, [pt[_t(g["table"]).long()] for g in buckets], buckets,
             _t(nb["ref_valid"]), ov_t)
         ref = jf.midpoint_refs_from_gathered(
             pj, pj[jnp.asarray(nb["table"])],

@@ -746,7 +746,10 @@ def test_unported_options_raise():
     # ref_order='slot' is ported (the gloo cases above hold it against
     # JAX): the engine and the step build
     emb = ShardedGraphEmbedder(adj, device="cpu", ref_order="slot", **PARAMS)
-    assert emb.ref_order == "slot" and "table_t_pad" in emb._step_ops
+    # the flat slot-major table rides as the one bucket, (cap, n)
+    (table_t,) = emb._step_ops["btables"]
+    assert emb.ref_order == "slot" and torch.equal(
+        table_t, torch.as_tensor(emb._nb["table_t"]).long())
     kw = dict(n_components=3, k_attr=0.5, L_min=10.0, k_inter=0.1,
               n_neighbors=5, sample_size=16)
     mesh = make_mesh(device="cpu")
@@ -756,10 +759,11 @@ def test_unported_options_raise():
                                           use_approx_local=True, **kw)
     assert callable(step) and callable(multi)
     edges = _engine_edges(adj)
-    step, multi, ops = build_sharded_step(
-        mesh, 60, len(edges), nb=build_neighbor_table(edges, 60,
-                                                      ref_order="slot"), **kw)
-    assert callable(step) and callable(multi) and "table_t_pad" in ops
+    nb = build_neighbor_table(edges, 60, ref_order="slot")
+    step, multi, ops = build_sharded_step(mesh, 60, len(edges), nb=nb, **kw)
+    (table_t,) = ops["btables"]
+    assert callable(step) and callable(multi) and torch.equal(
+        table_t, torch.as_tensor(nb["table_t"]).long())
     with pytest.raises(ValueError, match="knn_comm"):
         build_sharded_step(mesh, 60, 90, knn_comm="nccl", **kw)
     with pytest.raises(ValueError, match="knn_comm"):

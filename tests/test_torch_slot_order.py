@@ -177,16 +177,13 @@ def test_slotwise_ops_match_jax(case):
                 else jnb["table_t"])
     j_f, j_r = jax.jit(j_op)(jp, j_tables, jnb["ref_valid"], j_olt, j_ov,
                              j_plan)
-    if binned:
-        t_f, t_r = tf.spring_refs_binned_slotwise(
-            pt, [t_put(g["table_t"]) for g in nb["buckets"]], nb["buckets"],
-            PARAMS["k_attr"], PARAMS["L_min"], ref_valid=rv,
-            overflow_lt=t_olt, overflow_edges=t_ov, overflow_plan=t_plan)
-    else:
-        t_f, t_r = tf.spring_refs_slotwise(
-            pt, t_put(nb["table_t"]), nb["ref_cap"], PARAMS["k_attr"],
-            PARAMS["L_min"], ref_valid=rv, overflow_lt=t_olt,
-            overflow_edges=t_ov, overflow_plan=t_plan)
+    # a flat table is the one bucket
+    buckets = tf.table_buckets(nb)
+    t_tables = [t_put(g["table_t"]) for g in buckets]
+    t_f, t_r = tf.spring_refs_binned_slotwise(
+        pt, t_tables, buckets, PARAMS["k_attr"], PARAMS["L_min"],
+        ref_valid=rv, overflow_lt=t_olt, overflow_edges=t_ov,
+        overflow_plan=t_plan)
     np.testing.assert_array_equal(t_r.numpy(), np.asarray(j_r))
     np.testing.assert_allclose(t_f.numpy(), np.asarray(j_f), rtol=1e-6,
                                atol=1e-6)
@@ -197,14 +194,8 @@ def test_slotwise_ops_match_jax(case):
     # without refs: the same forces, no refs
     kw = dict(ref_valid=rv, overflow_lt=t_olt, overflow_edges=t_ov,
               overflow_plan=t_plan, want_refs=False)
-    if binned:
-        f2, r2 = tf.spring_refs_binned_slotwise(
-            pt, [t_put(g["table_t"]) for g in nb["buckets"]], nb["buckets"],
-            PARAMS["k_attr"], PARAMS["L_min"], **kw)
-    else:
-        f2, r2 = tf.spring_refs_slotwise(
-            pt, t_put(nb["table_t"]), nb["ref_cap"], PARAMS["k_attr"],
-            PARAMS["L_min"], **kw)
+    f2, r2 = tf.spring_refs_binned_slotwise(
+        pt, t_tables, buckets, PARAMS["k_attr"], PARAMS["L_min"], **kw)
     assert r2 is None and torch.equal(f2, t_f)
 
 
